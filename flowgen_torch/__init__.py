@@ -1,0 +1,35 @@
+"""flowgen_torch: the PyTorch / CUDA port of flowgen for NVIDIA Hopper.
+
+On-the-fly optical-flow training data: two 512x384 frames of a textured
+background and 16-24 textured moving shapes per sample, and the dense
+forward flow between them, generated from ``(seed, step)``. The JAX package
+``flowgen`` stays the reference; this package imports neither it nor JAX.
+
+Ported so far: the mode-7 main path (and the other rigid modes without
+quadrant factoring): threefry scene sampling, the scene-kernel precompute,
+the hand-written CUDA scene kernel (``csrc/scene.cu``) with its plain
+PyTorch version, the output adapter and the streaming ``Generator``.
+"""
+
+from .config import (
+    DEFAULT_HEIGHT,
+    DEFAULT_WIDTH,
+    MODES,
+    DataGenConfig,
+    ModeSpec,
+    disparity_mode,
+    register_mode,
+)
+from .texture_io import atlas_for_config, procedural_atlas
+
+__all__ = [
+    "DEFAULT_HEIGHT",
+    "DEFAULT_WIDTH",
+    "MODES",
+    "DataGenConfig",
+    "ModeSpec",
+    "disparity_mode",
+    "register_mode",
+    "atlas_for_config",
+    "procedural_atlas",
+]

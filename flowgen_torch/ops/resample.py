@@ -1,0 +1,272 @@
+"""Two-pass affine resampling of packed-RGB slabs: host helpers and the
+plain PyTorch resample (port of ``flowgen/ops/pallas_resample.py``).
+
+An output -> slab affine ``sx = a x + b y + e``, ``sy = c x + d y + f`` splits
+into two 1-D passes (Catmull-Smith):
+
+  pass 1: t1[w, x] = lerp(rows[w, u0], rows[w, u1], frac(u)),
+          u = clip(A x + B (w0 + w) + C, 0, CW - 1),
+          A = a - b c / d, B = b / d, C = e - B f
+  pass 2: out[y, x] = lerp(t1[v0, x], t1[v1, x], frac(v)),
+          v = clip(c x + d y + f - w0, 0, P - 1)
+
+over a staged row block ``rows = slab[w0 : w0 + P, c0 : c0 + CW]`` (the
+coefficient C is rebased by -c0). The clips are relative to the staged
+block, as in the JAX package's kernel (``resample_rows_in_kernel``).
+Texels are RGB packed in one int32, ``(r << 16) | (g << 8) | b``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from .._fp import div
+
+PASS1_CHUNK = 128
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def pack_rgb_i32(img: torch.Tensor) -> torch.Tensor:
+    """(..., H, W, 3) uint8/float -> (..., H, W) int32 (r<<16)|(g<<8)|b."""
+    if img.dtype != torch.uint8:
+        img = torch.clamp(torch.round(img.to(torch.float32)), 0, 255).to(
+            torch.uint8
+        )
+    v = img.to(torch.int32)
+    return (v[..., 0] << 16) | (v[..., 1] << 8) | v[..., 2]
+
+
+def unpack_rgb(v: torch.Tensor):
+    """Packed int32 -> three float32 channel planes."""
+    return (
+        ((v >> 16) & 0xFF).to(torch.float32),
+        ((v >> 8) & 0xFF).to(torch.float32),
+        (v & 0xFF).to(torch.float32),
+    )
+
+
+def _reflect_indices(i, n):
+    period = 2 * n
+    i = torch.remainder(i, period)
+    return torch.where(i >= n, period - 1 - i, i)
+
+
+def reflect_pad(img: torch.Tensor, margin_y: int, margin_x: int):
+    """Pad a (H, W, ...) tensor with AGG wrap_mode_reflect content (period
+    2n, second half mirrored)."""
+    h, w = img.shape[0], img.shape[1]
+    yi = _reflect_indices(torch.arange(-margin_y, h + margin_y, device=img.device), h)
+    xi = _reflect_indices(torch.arange(-margin_x, w + margin_x, device=img.device), w)
+    return img[yi][:, xi]
+
+
+def pack_padded_slab(img, margin_y: int, margin_x: int):
+    """(H, W, 3) image -> reflect-padded packed int32 slab, edge-padded to
+    (multiple of 8, multiple of 128)."""
+    slab = reflect_pad(pack_rgb_i32(img), margin_y, margin_x)
+    h, w = slab.shape
+    hp, wp = _round_up(h, 8), _round_up(w, 128)
+    return _edge_pad(slab, hp, wp)
+
+
+def _edge_pad(s: torch.Tensor, hp: int, wp: int):
+    yi = torch.clamp(torch.arange(hp, device=s.device), max=s.shape[0] - 1)
+    xi = torch.clamp(torch.arange(wp, device=s.device), max=s.shape[1] - 1)
+    return s[..., yi, :][..., xi]
+
+
+def two_pass_coeffs(transform):
+    """Split an output -> source affine (2, 3) into (A, B, C, c, d, f)."""
+    a, b, e = transform[0, 0], transform[0, 1], transform[0, 2]
+    c, d, f = transform[1, 0], transform[1, 1], transform[1, 2]
+    B = div(b, d)
+    A = a - B * c
+    C = e - B * f
+    return A, B, C, c, d, f
+
+
+def max_row_span(wh: int, ww: int, max_rot: float, max_scale: float) -> int:
+    """Static bound on the source-row span of a (wh, ww) window."""
+    if not max_rot <= math.pi / 4 + 1e-3:
+        raise ValueError("two-pass resampler needs |residual rot| <= 45 deg")
+    span = (
+        math.sin(min(max_rot, math.pi / 4)) * max_scale * ww
+        + max_scale * wh + 4
+    )
+    return _round_up(int(math.ceil(span)) + 8, 8)
+
+
+def scan_tiles_pass1(A_max: float, B_max: float, rows: int) -> int:
+    """Lane-tile scan count of the TPU kernel's pass 1 (kept for the static
+    sizing of the port; the CUDA kernel addresses texels directly)."""
+    return int(math.ceil((A_max * 128 + B_max * rows + 3) / 128)) + 1
+
+
+def scan_tiles_pass2(c_max: float, d_max: float, xchunk: int) -> int:
+    """Lane-tile scan count of the TPU kernel's pass 2."""
+    return int(math.ceil((c_max * xchunk + d_max * 128 + 3) / 128)) + 1
+
+
+# ---------------------------------------------------------------------------
+# Scalar window geometry (float32 numpy scalars: IEEE float32 per operation,
+# the same arithmetic as csrc/resample.cuh)
+# ---------------------------------------------------------------------------
+
+F32 = np.float32
+
+
+def pass1_row_start(coeffs, x0: int, y0: int, wh: int, ww: int, P: int,
+                    SH: int) -> int:
+    """Row-block start: min source-v over the window corners, floor - 1,
+    snapped to 8, clamped so [w0, w0+P) stays inside a height-``SH`` slab."""
+    _, _, _, c, d, f = coeffs
+    xs = (F32(x0), F32(x0) + F32(ww - 1))
+    ys = (F32(y0), F32(y0) + F32(wh - 1))
+    corners = [c * xx + d * yy + f for xx in xs for yy in ys]
+    vmin = min(min(corners[0], corners[1]), min(corners[2], corners[3]))
+    w0 = (int(np.floor(vmin)) - 1) & ~7
+    return int(min(max(w0, 0), (SH - P) & ~7))
+
+
+def col_window(coeffs, x0: int, w0: int, wwl: int, Pl: int, CW: int, SW: int):
+    """Column window of the staged row block: the 128-aligned start of the
+    source columns pass 1 can touch, clamped into the slab, and the
+    coefficients rebased to it. ``CW >= SW`` disables windowing."""
+    if CW >= SW:
+        return 0, coeffs
+    A, B, C, c, d, f = coeffs
+    xf, wf = F32(x0), F32(w0)
+    us = [
+        A * xx + B * wv + C
+        for xx in (xf, xf + F32(wwl - 1))
+        for wv in (wf, wf + F32(Pl - 1))
+    ]
+    umin = min(min(us[0], us[1]), min(us[2], us[3]))
+    c0 = (int(np.floor(umin)) - 1) & ~127
+    c0 = min(max(c0, 0), SW - CW)
+    return c0, (A, B, C - F32(c0), c, d, f)
+
+
+def fold_coeffs_scalar(mm, cx_c, cy_c, nx, ny, margin):
+    """Reflect fold at the footprint centre (cx_c, cy_c) composed into a raw
+    output -> source affine, then split into two-pass coefficients: the
+    TPU kernel's in-kernel fold (``s - 2n * floor(s / 2n)``)."""
+    m00, m01, m02, m10, m11, m12 = (F32(v) for v in mm)
+    cx_c, cy_c = F32(cx_c), F32(cy_c)
+
+    def fold(s_c, n):
+        n = F32(n)
+        two_n = F32(2.0) * n
+        r = s_c - two_n * np.floor(s_c / two_n)
+        mirror = r >= n
+        off = s_c - r
+        sig = F32(-1.0) if mirror else F32(1.0)
+        beta = ((two_n - F32(1.0)) + off if mirror else -off) + F32(margin)
+        return sig, beta
+
+    sx_c = m00 * cx_c + m01 * cy_c + m02
+    sy_c = m10 * cx_c + m11 * cy_c + m12
+    sigx, betax = fold(sx_c, nx)
+    sigy, betay = fold(sy_c, ny)
+    a = m00 * sigx
+    bb = m01 * sigx
+    e = m02 * sigx + betax
+    c = m10 * sigy
+    d = m11 * sigy
+    f = m12 * sigy + betay
+    B_ = bb / d
+    return (a - B_ * c, B_, e - B_ * f, c, d, f)
+
+
+# ---------------------------------------------------------------------------
+# Plain two-pass resample of a staged row block
+# ---------------------------------------------------------------------------
+
+
+def resample_rows(rows: torch.Tensor, w0: int, coeffs, x0: int, y0: int,
+                  wh: int, ww: int):
+    """Two-pass resample of a (wh, ww) window at output origin (x0, y0) from
+    a staged row block ``rows`` (P, CW) int32 holding slab rows [w0, w0+P)
+    (and the column window the coefficients are rebased to). Pass 1 runs
+    over all P rows, pass 2 gathers from it. Returns three (wh, ww) float32
+    channel planes."""
+    P, CW = rows.shape
+    dev = rows.device
+    A, B, C, c, d, f = (float(v) for v in coeffs)
+    w0f = float(F32(w0))
+    wg = (torch.arange(P, dtype=torch.float32, device=dev) + w0f)[:, None]
+    xg = (torch.arange(ww, dtype=torch.float32, device=dev) + float(x0))[None, :]
+    u = torch.clamp(A * xg + B * wg + C, 0.0, float(CW - 1))
+    uf = torch.floor(u)
+    fx = u - uf
+    u0 = uf.to(torch.int64)
+    u1 = torch.clamp(u0 + 1, max=CW - 1)
+    p0 = torch.gather(rows, 1, u0)
+    p1 = torch.gather(rows, 1, u1)
+
+    yg = (torch.arange(wh, dtype=torch.float32, device=dev) + float(y0))[:, None]
+    xg2 = xg.expand(wh, ww)
+    v = torch.clamp(c * xg2 + d * yg + f - w0f, 0.0, float(P - 1))
+    vf = torch.floor(v)
+    fy = v - vf
+    v0 = vf.to(torch.int64)
+    v1 = torch.clamp(v0 + 1, max=P - 1)
+
+    outs = []
+    for a0, a1 in zip(unpack_rgb(p0), unpack_rgb(p1)):
+        t1 = a0 + (a1 - a0) * fx
+        b0 = torch.gather(t1, 0, v0)
+        b1 = torch.gather(t1, 0, v1)
+        outs.append(b0 + (b1 - b0) * fy)
+    return tuple(outs)
+
+
+def resample_pixels(rows: torch.Tensor, w0: int, coeffs, xs, ys):
+    """The closed form of :func:`resample_rows` per output pixel, as the CUDA
+    kernel evaluates it (``csrc/resample.cuh``): pass 2 reads only rows
+    floor(v) and floor(v)+1 of pass 1, so each pixel lerps two pass-1 rows,
+    each lerped at its own u. ``xs``/``ys`` are integer pixel coordinates
+    (any shape). Returns three float32 planes of that shape."""
+    P, CW = rows.shape
+    A, B, C, c, d, f = (float(v) for v in coeffs)
+    xf = xs.to(torch.float32)
+    yf = ys.to(torch.float32)
+    v = torch.clamp(c * xf + d * yf + f - float(F32(w0)), 0.0, float(P - 1))
+    vf = torch.floor(v)
+    fy = v - vf
+    v0 = vf.to(torch.int64)
+    v1 = torch.clamp(v0 + 1, max=P - 1)
+
+    def pass1(vi):
+        wg = (vi + w0).to(torch.float32)
+        u = torch.clamp(A * xf + B * wg + C, 0.0, float(CW - 1))
+        uf = torch.floor(u)
+        fx = u - uf
+        u0 = uf.to(torch.int64)
+        u1 = torch.clamp(u0 + 1, max=CW - 1)
+        a0 = unpack_rgb(rows[vi, u0])
+        a1 = unpack_rgb(rows[vi, u1])
+        return [p + (q - p) * fx for p, q in zip(a0, a1)]
+
+    q0, q1 = pass1(v0), pass1(v1)
+    return tuple(p + (q - p) * fy for p, q in zip(q0, q1))
+
+
+def two_pass_window(slab: torch.Tensor, coeffs, x0: int, y0: int, wh: int,
+                    ww: int, P: int, CW: int):
+    """Stage the row block of a window (``pass1_row_start``, ``col_window``)
+    from a packed slab (SH, SW) and resample it with :func:`resample_rows`.
+    ``coeffs`` are float32 scalars in slab coordinates."""
+    SH, SW = slab.shape
+    coeffs = tuple(F32(v) for v in coeffs)
+    w0 = pass1_row_start(coeffs, x0, y0, wh, ww, P, SH)
+    CW = min(CW, SW)
+    c0, coeffs = col_window(coeffs, x0, w0, ww, P, CW, SW)
+    rows = slab[w0 : w0 + P, c0 : c0 + CW]
+    return resample_rows(rows, w0, coeffs, x0, y0, wh, ww)

@@ -1,0 +1,231 @@
+"""Generation pipeline: the batch step and the streaming runtime (port of
+``flowgen/pipeline/generator.py``).
+
+A batch is a pure function of ``(seed, step)``: sample the scenes of global
+indices ``step*B .. step*B+B-1``, precompute the scene-kernel tables, render,
+and adapt the output. PyTorch enqueues device work asynchronously, so the
+runtime keeps ``prefetch`` steps in flight on the current CUDA stream.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
+without a card and without that request they raise.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Iterator, Optional
+
+import numpy as np
+import torch
+
+from .. import texture_io
+from ..compose.fused import check_slice, render_batch_fused
+from ..config import DataGenConfig
+from ..ops.scene import prepare_bg_slabs, prepare_slabs
+from ..params.sampler import sample_scene_batch
+from ..random.streams import root_key
+
+
+def resolve_device(device=None) -> torch.device:
+    """``cuda`` unless the caller asks for another device. Raises when CUDA
+    is requested and no card is present: the port never falls back to the
+    CPU on its own."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "flowgen_torch runs on a CUDA device; none is available. Pass "
+            "device='cpu' to run the plain PyTorch path on the CPU."
+        )
+    return dev
+
+
+def _adapt_output(images0, images1, flow0, flow1, cfg: DataGenConfig,
+                  masks=None):
+    """Output-compatibility transforms: BGR channel order, NCHW layout and
+    the disparity output of the horizontal-only modes."""
+    if cfg.warp_oob == "nan" and cfg.mode_spec.warp_p > 0.0:
+        raise NotImplementedError(
+            "warp_oob='nan' belongs to mode 9 (ROADMAP.md, port queue item 4)"
+        )
+    if cfg.channel_order == "bgr":
+        images0 = images0.flip(-1)
+        images1 = images1.flip(-1)
+    out = {"image0": images0, "image1": images1, "flow0": flow0}
+    if flow1 is not None:
+        out["flow1"] = flow1
+    if cfg.layout == "nchw":
+        out = {k: v.movedim(-1, 1) for k, v in out.items()}
+    if masks is not None:
+        out["occlusion"], out["motion_boundary"] = masks
+    if cfg.mode_spec.horizontal_only:
+        out["disparity"] = -(
+            flow0[..., 0] if cfg.layout == "nhwc" else out["flow0"][:, 0]
+        )
+    return out
+
+
+def _as_u8(atlas) -> torch.Tensor:
+    a = torch.as_tensor(np.asarray(atlas)) if not torch.is_tensor(atlas) else atlas
+    if a.dtype != torch.uint8:
+        a = torch.clamp(torch.round(a.to(torch.float32)), 0, 255).to(torch.uint8)
+    return a
+
+
+def make_slab_packer(cfg: DataGenConfig, device):
+    """Cache of the packed texture slabs (object crops and full background
+    sources), built once per distinct atlas object."""
+    cache = {}
+
+    def slabs(atlas):
+        if cache.get("id") != id(atlas):
+            a = _as_u8(atlas).to(device)
+            cache["id"] = id(atlas)
+            cache["val"] = (
+                prepare_slabs(a, cfg.height, cfg.width),
+                prepare_bg_slabs(a),
+                (a.shape[1], a.shape[2]),
+            )
+        return cache["val"]
+
+    return slabs
+
+
+def generate_batch(root, step, atlas, cfg: DataGenConfig, base_index=None,
+                   slabs=None, device=None):
+    """One batch: samples ``cfg.batch_size`` scenes at global indices
+    ``base_index .. base_index+B-1`` (default ``step*B``) and renders them.
+    ``atlas`` is a (T, 2H, 2W, 3) texture bank; ``slabs`` optionally the
+    pre-packed ``(obj_slabs, bg_slabs, (src_h, src_w))``. ``root`` is a key
+    from ``random.streams.root_key`` or an int seed."""
+    check_slice(cfg)
+    dev = resolve_device(device)
+    if not torch.is_tensor(root):
+        root = root_key(root, dev)
+    root = root.to(dev)
+    b = cfg.batch_size
+    if base_index is None:
+        base_index = int(step) * b
+    indices = base_index + torch.arange(b, device=dev)
+    if slabs is None:
+        slabs = make_slab_packer(cfg, dev)(atlas)
+    obj_slabs, bg_slabs, src_hw = slabs
+    scenes = sample_scene_batch(root, indices, cfg, n_warp_slots=1)
+    i0, i1, f0 = render_batch_fused(scenes, obj_slabs, bg_slabs, src_hw, cfg)
+    return _adapt_output(i0, i1, f0, None, cfg)
+
+
+def make_generate_fn(cfg: DataGenConfig, device=None):
+    """``fn(root, step, atlas) -> batch`` with the slabs packed once per
+    atlas."""
+    check_slice(cfg)
+    dev = resolve_device(device)
+    slab_of = make_slab_packer(cfg, dev)
+
+    def fn(root, step, atlas):
+        return generate_batch(root, step, atlas, cfg, slabs=slab_of(atlas),
+                              device=dev)
+
+    return fn
+
+
+class Generator:
+    """Streaming batch source: start/stop/pause/resume, blocking
+    ``retrieve_batch``, the iterator protocol, and a seekable ``step``
+    counter for exact resume. ``prefetch`` steps stay enqueued on the
+    current CUDA stream ahead of the consumer."""
+
+    def __init__(
+        self,
+        cfg: DataGenConfig,
+        atlas: Optional[np.ndarray] = None,
+        start_step: int = 0,
+        as_numpy: bool = False,
+        device=None,
+    ):
+        check_slice(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        if atlas is None:
+            atlas = texture_io.atlas_for_config(cfg)
+        self._atlas = atlas
+        self._root = root_key(cfg.seed, self.device)
+        self._fn = make_generate_fn(cfg, self.device)
+        self._step = start_step
+        self._as_numpy = as_numpy
+        self._running = False
+        self._paused = threading.Event()
+        self._paused.set()
+        self._inflight = []
+        self._lock = threading.Lock()
+
+    def start(self):
+        if self._running:
+            return self
+        self._running = True
+        self._pump()
+        return self
+
+    def stop(self):
+        self._running = False
+        with self._lock:
+            self._inflight.clear()
+        return self
+
+    def pause(self):
+        self._paused.clear()
+        return self
+
+    def resume(self):
+        self._paused.set()
+        if self._running:
+            self._pump()
+        return self
+
+    @property
+    def step(self) -> int:
+        """Next global step index; persist this for exact stream resume."""
+        return self._step
+
+    def seek(self, step: int):
+        """Restart the stream at global ``step`` (drops in-flight steps)."""
+        with self._lock:
+            self._inflight.clear()
+            self._step = int(step)
+        if self._running:
+            self._pump()
+        return self
+
+    def _dispatch(self):
+        out = self._fn(self._root, self._step, self._atlas)
+        self._step += 1
+        return out
+
+    def _pump(self):
+        with self._lock:
+            while self._running and self._paused.is_set() and (
+                len(self._inflight) < max(1, self.cfg.prefetch)
+            ):
+                self._inflight.append(self._dispatch())
+
+    def retrieve_batch(self):
+        """Blocking fetch of the next finished batch."""
+        if not self._running:
+            self.start()
+        while not self._paused.is_set():
+            time.sleep(0.001)
+        with self._lock:
+            out = self._inflight.pop(0) if self._inflight else self._dispatch()
+        self._pump()
+        if self._as_numpy:
+            out = {k: v.cpu().numpy() for k, v in out.items()}
+        return out
+
+    def has_retrievable_batches(self) -> bool:
+        return len(self._inflight) > 0
+
+    def __iter__(self) -> Iterator[dict]:
+        return self
+
+    def __next__(self) -> dict:
+        return self.retrieve_batch()

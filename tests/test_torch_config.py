@@ -1,0 +1,148 @@
+"""The PyTorch port's package surface: its copy of the configuration and the
+procedural texture bank match the JAX package, it imports without JAX, and
+its entry points refuse what the ported slice does not cover."""
+
+import ast
+import dataclasses
+import os
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import flowgen
+import flowgen.config as jcfg
+import flowgen_torch
+import flowgen_torch.config as tcfg
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize("mode", list(range(1, 14)))
+def test_modes_match(mode):
+    assert dataclasses.asdict(tcfg.MODES[mode]) == dataclasses.asdict(
+        jcfg.MODES[mode]
+    )
+
+
+def test_constants_and_defaults_match():
+    for name in ("DEFAULT_WIDTH", "DEFAULT_HEIGHT", "MAX_OBJECTS",
+                 "MAX_COMPONENTS", "MAX_SPOKES", "EDGE_SUBDIV", "MAX_EDGES",
+                 "ELLIPSE_STEPS", "BACKGROUND_OBJ_ID", "FOREGROUND_ID_BASE",
+                 "KIND_ELLIPSE", "KIND_POLYGON", "KIND_COMPOSITE", "PI"):
+        assert getattr(tcfg, name) == getattr(jcfg, name), name
+    for mode in (1, 7, 13):
+        a = dataclasses.asdict(tcfg.DataGenConfig(mode=mode, batch_size=5))
+        b = dataclasses.asdict(jcfg.DataGenConfig(mode=mode, batch_size=5))
+        assert a == b
+    assert [f.name for f in dataclasses.fields(tcfg.DataGenConfig)] == [
+        f.name for f in dataclasses.fields(jcfg.DataGenConfig)
+    ]
+
+
+def test_disparity_mode_matches():
+    assert tcfg.disparity_mode(7) == jcfg.disparity_mode(7) == 107
+    assert dataclasses.asdict(tcfg.MODES[107]) == dataclasses.asdict(
+        jcfg.MODES[107]
+    )
+
+
+def test_procedural_atlas_byte_equal():
+    a = flowgen_torch.procedural_atlas(3, height=24, width=32, seed=5)
+    b = flowgen.procedural_atlas(3, height=24, width=32, seed=5)
+    assert a.dtype == b.dtype == np.uint8
+    np.testing.assert_array_equal(a, b)
+
+
+def test_import_without_jax():
+    code = (
+        "import sys, importlib, pkgutil\n"
+        "sys.modules['jax'] = None\n"
+        "import flowgen_torch\n"
+        "for m in pkgutil.walk_packages(flowgen_torch.__path__, 'flowgen_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "assert not any(k == 'flowgen' or k.startswith('flowgen.') "
+        "for k in sys.modules)\n"
+        "print('ok')\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().endswith("ok")
+
+
+def _py_files():
+    pkg = os.path.join(ROOT, "flowgen_torch")
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(pkg):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return out
+
+
+def test_no_jax_or_flowgen_imports():
+    bad = []
+    for path in _py_files():
+        tree = ast.parse(open(path).read(), path)
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            for n in names:
+                top = n.split(".")[0]
+                if top in ("jax", "jaxlib", "flowgen"):
+                    bad.append(f"{path}: {n}")
+    assert not bad, bad
+    assert len(_py_files()) > 10
+
+
+def test_generator_without_device_raises_without_card():
+    from flowgen_torch.pipeline.generator import Generator
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    cfg = flowgen_torch.DataGenConfig(mode=7, batch_size=2, width=128,
+                                      height=96)
+    atlas = flowgen_torch.procedural_atlas(2, height=96, width=128)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Generator(cfg, atlas=atlas)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(mode=9),
+    dict(mode=11),
+    dict(mode=13),
+    dict(mode=7, compute_inverse_flow=True),
+    dict(mode=7, emit_masks=True),
+    dict(mode=7, photometric_augment=True),
+    dict(mode=7, render_impl="windowed"),
+    dict(mode=7, texture_dbases=("list.txt",)),
+])
+def test_out_of_slice_configs_raise(kw):
+    from flowgen_torch.pipeline.generator import generate_batch
+
+    cfg = flowgen_torch.DataGenConfig(batch_size=1, width=128, height=96, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        generate_batch(0, 0, None, cfg, device="cpu")
+
+
+def test_texture_db_atlas_raises():
+    cfg = flowgen_torch.DataGenConfig(mode=7, texture_dbases=("x.txt",))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        flowgen_torch.atlas_for_config(cfg)
+
+
+def test_all_modules_listed():
+    names = {m.name for m in pkgutil.walk_packages(
+        flowgen_torch.__path__, "flowgen_torch.")}
+    for want in ("flowgen_torch.config", "flowgen_torch.random.streams",
+                 "flowgen_torch.params.sampler", "flowgen_torch.ops.scene",
+                 "flowgen_torch.compose.fused",
+                 "flowgen_torch.pipeline.generator", "flowgen_torch.interop"):
+        assert want in names

@@ -1,0 +1,77 @@
+"""Scene sampling in the PyTorch port against the JAX package: the same
+(seed, sample indices) give the same scenes. Integer and bool leaves are
+exact; float leaves differ only by libm ulps of log / cos / sin / sqrt."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import flowgen
+import flowgen_torch
+from flowgen.params import sampler as jsamp
+from flowgen.random.streams import root_key as j_root
+from flowgen_torch.params import sampler as tsamp
+from flowgen_torch.random.streams import root_key as t_root
+
+torch.set_num_threads(1)
+
+W, H, B = 128, 96, 4
+
+
+def _leaves(mode, seed=0, base=0):
+    jc = flowgen.DataGenConfig(mode=mode, batch_size=B, width=W, height=H)
+    tc = flowgen_torch.DataGenConfig(mode=mode, batch_size=B, width=W, height=H)
+    js = jax.tree.map(
+        np.asarray, jsamp.sample_scene_batch(j_root(seed), base + jnp.arange(B), jc)
+    )
+    tsc = tsamp.sample_scene_batch(t_root(seed), base + torch.arange(B), tc)
+    jl = jax.tree_util.tree_flatten_with_path(js)[0]
+    tl = jax.tree_util.tree_leaves(tsc)
+    assert len(jl) == len(tl)
+    return [(jax.tree_util.keystr(p), a, b.numpy()) for (p, a), b in zip(jl, tl)]
+
+
+@pytest.mark.parametrize("mode", [1, 7])
+def test_sample_scene_batch_matches(mode):
+    n_float = 0
+    for name, a, b in _leaves(mode):
+        assert a.shape == b.shape, name
+        if a.dtype.kind in "biu":
+            np.testing.assert_array_equal(b.astype(a.dtype), a, err_msg=name)
+        else:
+            n_float += 1
+            np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-4, err_msg=name)
+    assert n_float >= 8
+
+
+def test_sample_scene_other_seed_and_base():
+    for name, a, b in _leaves(7, seed=12345, base=1000):
+        if a.dtype.kind in "biu":
+            np.testing.assert_array_equal(b.astype(a.dtype), a, err_msg=name)
+        else:
+            np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-4, err_msg=name)
+
+
+def test_flatten_outline_matches():
+    """The index-gather compaction equals the one-hot matmul compaction."""
+    rng = np.random.default_rng(1)
+    S = 20
+    for trial in range(12):
+        n = int(rng.integers(3, S + 1))
+        verts = rng.uniform(-80, 80, (S, 2)).astype(np.float32)
+        types = [0]
+        prev = False
+        for i in range(1, S):
+            curve = (i < n - 1) and rng.random() < 0.4 and not prev
+            types.append(0 if prev else (2 if curve else 1))
+            prev = curve
+        types = np.array(types, np.int32)
+        jp, jn = jsamp.flatten_outline(jnp.asarray(verts), jnp.asarray(types),
+                                       jnp.int32(n))
+        tp, tn = tsamp.flatten_outline(torch.from_numpy(verts),
+                                       torch.from_numpy(types),
+                                       torch.tensor(n, dtype=torch.int32))
+        assert int(tn) == int(jn)
+        np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=0, atol=1e-5)
