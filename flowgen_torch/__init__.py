@@ -8,7 +8,10 @@ forward flow between them, generated from ``(seed, step)``. The JAX package
 Ported so far: the mode-7 main path (and the other rigid modes without
 quadrant factoring): threefry scene sampling, the scene-kernel precompute,
 the hand-written CUDA scene kernel (``csrc/scene.cu``) with its plain
-PyTorch version, the output adapter and the streaming ``Generator``.
+PyTorch version, the output adapter and the streaming ``Generator``; and
+mode 9: the warp-field bank (``warpfields/``, CUDA kernels in
+``csrc/fields.cu``) and the scene kernel's displacement warps
+(``csrc/warp.cuh``).
 """
 
 from .config import (

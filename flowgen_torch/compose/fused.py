@@ -359,8 +359,9 @@ def check_slice(cfg: DataGenConfig):
     port-queue item that will bring them."""
     spec = cfg.mode_spec
     todo = []
-    if spec.warp_p > 0.0:
-        todo.append("warp_p > 0 (mode 9): port queue item 4")
+    if spec.warp_p > 0.0 and cfg.warp_bank_impl != "pallas":
+        todo.append("warp_bank_impl='xla' (mode 9's quad-gather bank): port "
+                    "queue item 4")
     if ps.quadrant_needed(spec) or (
         ps.texture_split(spec, cfg.height, cfg.width) or 1) > 1:
         todo.append("quadrant / texture_split > 1 (modes 11, 13): port queue item 1")
@@ -384,10 +385,13 @@ def check_slice(cfg: DataGenConfig):
         )
 
 
-def scene_tables(scenes: Scene, cfg: DataGenConfig, slabs, bgslabs, src_hw):
+def scene_tables(scenes: Scene, cfg: DataGenConfig, slabs, bgslabs, src_hw,
+                 warp_aux=None):
     """A batch's scene-kernel inputs: ``(args, spec_key, use_aa)``, with
     ``args`` in :func:`ops.scene.scene_render`'s order. ``src_hw``: the
-    background sources' (height, width)."""
+    background sources' (height, width). Nonrigid modes pass ``warp_aux``,
+    the ``compose/render.py:WarpAux`` of
+    ``warpfields/generator.py:make_bank_and_aux``."""
     H, W = cfg.height, cfg.width
     count, order, omi, omf, tmi, tmf, edges = prepare_scene_inputs(
         scenes, cfg, slabs.shape[0]
@@ -407,20 +411,27 @@ def scene_tables(scenes: Scene, cfg: DataGenConfig, slabs, bgslabs, src_hw):
                 "motion envelope; their fused resampling is unreliable"
             )
 
+    has_warp = cfg.mode_spec.warp_p > 0.0
+    if has_warp and warp_aux is None:
+        raise ValueError("mode %d deforms objects: pass warp_aux" % cfg.mode)
+    planes = tuple(warp_aux) if has_warp else (None, None, None)
     worklist, n_units = ps.build_worklists(count, order, omi)
     args = (bg_meta, omi, omf, tmi, tmf.contiguous(), bgm.contiguous(),
-            edges.contiguous(), slabs, bgslabs, worklist, n_units)
+            edges.contiguous(), slabs, bgslabs, worklist, n_units) + planes
     spec_key = ps.resample_params(cfg.mode_spec, H, W) + (H, W)
     return args, spec_key, cfg.use_antialiasing
 
 
 def render_batch_fused(scenes: Scene, slabs, bgslabs, src_hw,
-                       cfg: DataGenConfig, bg_only: bool = False):
+                       cfg: DataGenConfig, bg_only: bool = False,
+                       warp_aux=None):
     """Fused render of a batch: (image0, image1, flow0) with images
     (B,H,W,3) float32 in [0, 255] and flow (B,H,W,2). ``src_hw``: the
-    background sources' (height, width)."""
+    background sources' (height, width). Nonrigid modes pass ``warp_aux``
+    (a ``compose/render.py:WarpAux``)."""
     check_slice(cfg)
-    args, spec_key, use_aa = scene_tables(scenes, cfg, slabs, bgslabs, src_hw)
+    args, spec_key, use_aa = scene_tables(scenes, cfg, slabs, bgslabs, src_hw,
+                                          warp_aux)
     frames, flow = ps.scene_render(*args, spec_key=spec_key, use_aa=use_aa,
                                    bg_only=bg_only)
 

@@ -1,9 +1,12 @@
 """Per-object screen geometry shared with the fused path (port of the parts
-of ``flowgen/compose/render.py`` that ``compose/fused.py`` uses). The
+of ``flowgen/compose/render.py`` that ``compose/fused.py`` uses, and the
+mode-9 ``WarpBank`` and ``WarpAux``). The
 windowed renderer itself is not ported yet (ROADMAP.md, port queue item
 "windowed fallback")."""
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -11,6 +14,26 @@ from ..ops import affine
 
 AA_MARGIN = 2.0          # AA feather reaches 0.5 px outside the outline
 WARP_MARGIN = 48.0       # max |iflow| of composed warp fields (~40 px)
+
+
+class WarpBank(NamedTuple):
+    """Bank of nonrigid deformation crops for mode 9: flow and iflow
+    (N, H, W, 2), the JAX package's layout."""
+
+    flow: torch.Tensor
+    iflow: torch.Tensor
+
+
+class WarpAux(NamedTuple):
+    """The scene kernel's warp planes of a bank epoch: ``obj`` and ``bg`` are
+    the JAX package's ``(obj_aux, bg_aux)``; ``bg_band`` (N, n_bg_tiles,
+    tile_w / 128) int32 holds the first source tile of each block's pass-1
+    band in the background warp, which depends only on ``bg`` and so is
+    derived once per epoch (``ops/scene.py:bg_band_starts``)."""
+
+    obj: torch.Tensor
+    bg: torch.Tensor
+    bg_band: torch.Tensor
 
 
 def _all_bboxes(prims, motions):

@@ -2,8 +2,9 @@
 // forward flow) on NVIDIA Hopper.
 //
 // Replaces the TPU megakernel flowgen/ops/pallas_scene.py:scene_render_pallas
-// (kernel body _make_scene_kernel), rigid branch with tsplit == 1: no mode-9
-// warps, no quadrant sub-windows, no inverse flow, no id images.
+// (kernel body _make_scene_kernel) with tsplit == 1: the rigid branch and the
+// mode-9 warp branch (has_warp; device functions in warp.cuh). No quadrant
+// sub-windows, no inverse flow, no id images.
 //
 // What bounds it. Bytes: 2 frames of packed RGB plus 2 flow planes per sample
 // written once (16 bytes a pixel) and the texels the output depends on, read
@@ -37,6 +38,14 @@
 // unit's window geometry, so the clips of the staged resample are the TPU
 // kernel's. Rounding is round-half-even (rintf); the file is compiled with
 // -fmad=false and IEEE division and square root.
+//
+// Mode 9 (scene_kernel<true>). A deforming object's frame-1 pixel, and a
+// deforming background's, reads its source at 2x2 taps of the displaced
+// u8-rounded intermediate; the kernel recomputes coverage, texture or
+// background at each tap instead of staging a halo (warp.cuh), so such a
+// pixel costs four coverage evaluations and 16 texel loads. The warp planes
+// add about 8 bytes a displaced pixel and 8 a forward-field pixel to the
+// bytes above; the recomputed coverage moves the operations count up.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -58,9 +67,9 @@ constexpr float kEllCullM = 2.0f;
 
 // bgm / objmeta / tilemeta layouts (flowgen_torch/ops/scene.py).
 constexpr int kBgmT0 = 0, kBgmT1 = 6, kBgmSrcW = 12, kBgmSrcH = 13;
-constexpr int kBgmPix = 16, kBgmSize = 40;
+constexpr int kBgmPix = 16, kBgmFaff = 24, kBgmSize = 40;
 constexpr int kOmiTex = 3, kOmiNPrims = 4, kOmiAddBits = 5, kOmiPolyBits = 6;
-constexpr int kOmiNEdges = 8, kOmiSize = 16;
+constexpr int kOmiWarp = 7, kOmiNEdges = 8, kOmiSlot = 15, kOmiSize = 16;
 constexpr int kOmfMotion = 0, kOmfEll = 8, kOmfExt = 72, kOmfSize = 88;
 constexpr int kTmiSize = 8, kTmfSize = 8;
 
@@ -76,9 +85,13 @@ struct SceneParams {
   const float* edges;   // (B, K, 2, 4, EP)
   const int* slabs;     // (T, SHs, SWs)
   const int* bgslabs;   // (Tb, SHb, SWb)
+  const float* aux;     // mode 9: (N, 4, H, W) [gdisp, vdisp, flow x, y]
+  const float* bgaux;   // mode 9: (N, 2, H + 2*BG_EY, W) [gdisp, vdisp]
+  const int* bg_band;   // mode 9: (N, n_bg_tiles, ww / 128) pass-1 band tiles
   int* frames;          // (B, 2, H, W)
   float* flow;          // (B, 2, H, W)
   int B, K, EP, H, W, T, SHs, SWs, Tb, SHb, SWb, P, PBG, CWO, CWB;
+  int xscan, yscan, xscanb, yscanb;   // the TPU kernel's band scan counts
   int use_aa, bg_only;
 };
 
@@ -152,6 +165,15 @@ __device__ void unit_coverage(const int* om,
   *in_out = in_acc;
 }
 
+}  // namespace flowgen
+
+#include "warp.cuh"
+
+namespace flowgen {
+
+// kWarp: the mode-9 instantiation. The rigid one holds none of the warp
+// code, so its register count (and occupancy) is the rigid branch's own.
+template <bool kWarp>
 __global__ void __launch_bounds__(kTileW* kTileH)
     scene_kernel(const SceneParams p) {
   __shared__ float sedges[4][kEdgePool];
@@ -169,26 +191,71 @@ __global__ void __launch_bounds__(kTileW* kTileH)
 
   // ---- background: owner = the last static window tile covering (x, y) ----
   const float* bgm = p.bgm + (size_t)b * kBgmSize;
+  const WarpFrame g = warp_frame(H, W);
+  const bool bg_warp = kWarp && p.bg_meta[b * 3 + 1] != 0;
+  const int bslot = p.bg_meta[b * 3 + 2];
+  const int Pp = ((max(p.P, p.PBG) + 127) / 128) * 128;
   int val = 0;
   float flx = 0.0f, fly = 0.0f;
   if (inside) {
     const int oy = y >= H - wh ? H - wh : (y / wh) * wh;
     const int ox = x >= W - ww ? W - ww : (x / ww) * ww;
+    const int btid = p.bg_meta[b * 3];
+    const int* bslab = p.bgslabs + (size_t)btid * p.SHb * p.SWb;
     float co[6];
     fold_coeffs(bgm + (frame ? kBgmT1 : kBgmT0), (float)ox + 0.5f * (float)ww,
                 (float)oy + 0.5f * (float)wh, bgm[kBgmSrcW], bgm[kBgmSrcH],
                 (float)kSlabMargin, co);
-    const int btid = p.bg_meta[b * 3];
-    const int* bslab = p.bgslabs + (size_t)btid * p.SHb * p.SWb;
-    const int w0 = pass1_row_start(co, ox, oy, wh, ww, p.PBG, p.SHb);
-    const int c0 = col_window(co, ox, w0, ww, p.PBG, p.CWB, p.SWb);
     float rgb[3];
-    two_pass_pixel(bslab, p.SWb, w0, c0, p.CWB, p.PBG, co, x, y, rgb);
+    if (frame == 1 && bg_warp) {
+      const size_t pl = (size_t)g.HB * W;
+      const int nty = (H + wh - 1) / wh, ntx = (W + ww - 1) / ww;
+      const int bt = (y >= H - wh ? nty - 1 : y / wh) * ntx +
+                     (x >= W - ww ? ntx - 1 : x / ww);
+      const int band = p.bg_band[((size_t)bslot * nty * ntx + bt) * (ww / 128) +
+                                 (x - ox) / 128];
+      warp_bg_pixel(g, bgm, bslab, p.SHb, p.SWb, p.PBG, p.CWB,
+                    p.bgaux + (size_t)bslot * 2 * pl,
+                    p.bgaux + ((size_t)bslot * 2 + 1) * pl, band, x, y, oy,
+                    rgb);
+    } else {
+      const int w0 = pass1_row_start(co, ox, oy, wh, ww, p.PBG, p.SHb);
+      const int c0 = col_window(co, ox, w0, ww, p.PBG, p.CWB, p.SWb);
+      two_pass_pixel(bslab, p.SWb, w0, c0, p.CWB, p.PBG, co, x, y, rgb);
+    }
     val = pack3(rintf(rgb[0]), rintf(rgb[1]), rintf(rgb[2]));
     // Affine flow init: each product rounded on its own (-fmad=false).
     const float* m = bgm + kBgmPix;
     flx = ((m[0] * xf + m[1] * yf) + m[2]) - xf;
     fly = ((m[3] * xf + m[4] * yf) + m[5]) - yf;
+    if (frame == 0 && bg_warp) {
+      // Forward field of the background at the moved positions, x2
+      // magnitude, inside the 2W x 2H big texture; added once per
+      // static background tile holding the pixel, in tile order.
+      const float mvx = ((m[0] * xf + m[1] * yf) + m[2]) + 0.5f * (float)W;
+      const float mvy = ((m[3] * xf + m[4] * yf) + m[5]) + 0.5f * (float)H;
+      const float inb = (mvx >= 0.0f && mvx < 2.0f * (float)W &&
+                         mvy >= 0.0f && mvy < 2.0f * (float)H) ? 1.0f : 0.0f;
+      float fa[6];
+      two_pass_split(bgm + kBgmFaff, fa);
+      const size_t pl = (size_t)H * W;
+      const float* wfx_pl = p.aux + ((size_t)bslot * 4 + 2) * pl;
+      const float* wfy_pl = p.aux + ((size_t)bslot * 4 + 3) * pl;
+      for (int ty = 0; ty < (H + wh - 1) / wh; ++ty) {
+        for (int tx = 0; tx < (W + ww - 1) / ww; ++tx) {
+          const int y0s = min(ty * wh, H - wh), x0s = min(tx * ww, W - ww);
+          if (y < y0s || y >= y0s + wh || x < x0s || x >= x0s + ww) continue;
+          const float wx = resample_plane_pixel(wfx_pl, H, W, fa, y0s, x0s, wh,
+                                                ww, p.P, Pp, p.xscanb,
+                                                p.yscanb, x, y);
+          const float wy = resample_plane_pixel(wfy_pl, H, W, fa, y0s, x0s, wh,
+                                                ww, p.P, Pp, p.xscanb,
+                                                p.yscanb, x, y);
+          flx = flx + (2.0f * wx) * inb;
+          fly = fly + (2.0f * wy) * inb;
+        }
+      }
+    }
   }
 
   // ---- object units in painter's order ----
@@ -228,24 +295,34 @@ __global__ void __launch_bounds__(kTileW* kTileH)
       if (!own) continue;
       const int y0w = tm[0] & ~7;
       const int x0w = tm[1] & ~127;
-      float aa, ins;
-      unit_coverage(om, of, sedges, x, y, y0w, x0w, wh, &aa, &ins);
-      const float mm = p.use_aa ? aa : ins;
+      const bool warping = kWarp && om[kOmiWarp] != 0;
+      const size_t pl = (size_t)H * W;
+      const float* slot_aux =
+          warping ? p.aux + (size_t)om[kOmiSlot] * 4 * pl : nullptr;
       const int* slab = p.slabs + (size_t)om[kOmiTex] * p.SHs * p.SWs;
+      float aa = 0.0f, ins = 0.0f, mm;
       float tex[3];
-      if (frame == 0) {
-        const int sy = (kSlabMargin + y0w) & ~7;
-        const int sx = (kSlabMargin + x0w) & ~127;
-        unpack3(__ldg(slab + (size_t)(sy + y - y0w) * p.SWs + sx + (x - x0w)),
-                tex);
+      if (frame == 1 && warping) {
+        warp_unit_pixel(g, om, of, sedges, slot_aux, slot_aux + pl, slab,
+                        p.SHs, p.SWs, p.P, p.CWO, p.use_aa, x, y, y0w, x0w,
+                        &mm, tex);
       } else {
-        float co[6];
-        const float* tc = p.tmf + (kf * kMaxTiles + t) * kTmfSize;
+        unit_coverage(om, of, sedges, x, y, y0w, x0w, wh, &aa, &ins);
+        mm = p.use_aa ? aa : ins;
+        if (frame == 0) {
+          const int sy = (kSlabMargin + y0w) & ~7;
+          const int sx = (kSlabMargin + x0w) & ~127;
+          unpack3(__ldg(slab + (size_t)(sy + y - y0w) * p.SWs + sx + (x - x0w)),
+                  tex);
+        } else {
+          float co[6];
+          const float* tc = p.tmf + (kf * kMaxTiles + t) * kTmfSize;
 #pragma unroll
-        for (int i = 0; i < 6; ++i) co[i] = tc[i];
-        const int w0 = pass1_row_start(co, x0w, y0w, wh, ww, p.P, p.SHs);
-        const int c0 = col_window(co, x0w, w0, ww, p.P, p.CWO, p.SWs);
-        two_pass_pixel(slab, p.SWs, w0, c0, p.CWO, p.P, co, x, y, tex);
+          for (int i = 0; i < 6; ++i) co[i] = tc[i];
+          const int w0 = pass1_row_start(co, x0w, y0w, wh, ww, p.P, p.SHs);
+          const int c0 = col_window(co, x0w, w0, ww, p.P, p.CWO, p.SWs);
+          two_pass_pixel(slab, p.SWs, w0, c0, p.CWO, p.P, co, x, y, tex);
+        }
       }
       float f[3];
       unpack3(val, f);
@@ -258,6 +335,24 @@ __global__ void __launch_bounds__(kTileW* kTileH)
         const float ofy = ((mo[3] * xf + mo[4] * yf) + mo[5]) - yf;
         flx = ofx * ins + flx * (1.0f - ins);
         fly = ofy * ins + fly * (1.0f - ins);
+        if (warping) {
+          // + forward field at the moved position, inside the frame, under
+          // the same mask.
+          const float mvx = (mo[0] * xf + mo[1] * yf) + mo[2];
+          const float mvy = (mo[3] * xf + mo[4] * yf) + mo[5];
+          const float inb = ((mvx >= 0.0f && mvx < (float)W && mvy >= 0.0f &&
+                              mvy < (float)H) ? 1.0f : 0.0f) * ins;
+          float co[6];
+          two_pass_split(mo, co);
+          const float wx = resample_plane_pixel(slot_aux + 2 * pl, H, W, co,
+                                                y0w, x0w, wh, ww, p.P, Pp,
+                                                p.xscan, p.yscan, x, y);
+          const float wy = resample_plane_pixel(slot_aux + 3 * pl, H, W, co,
+                                                y0w, x0w, wh, ww, p.P, Pp,
+                                                p.xscan, p.yscan, x, y);
+          flx = flx + wx * inb;
+          fly = fly + wy * inb;
+        }
       }
     }
   }
@@ -278,9 +373,12 @@ extern "C" int flowgen_scene_render(
     const int* worklist, const int* n_units, const int* bg_meta,
     const int* omi, const float* omf, const int* tmi, const float* tmf,
     const float* bgm, const float* edges, const int* slabs,
-    const int* bgslabs, int* frames, float* flow, int B, int K, int EP, int H,
-    int W, int T, int SHs, int SWs, int Tb, int SHb, int SWb, int P, int PBG,
-    int CWO, int CWB, int use_aa, int bg_only, void* stream) {
+    const int* bgslabs, const float* aux, const float* bgaux,
+    const int* bg_band, int* frames,
+    float* flow, int B, int K, int EP, int H, int W, int T, int SHs, int SWs,
+    int Tb, int SHb, int SWb, int P, int PBG, int CWO, int CWB, int xscan,
+    int yscan, int xscanb, int yscanb, int has_warp, int use_aa, int bg_only,
+    void* stream) {
   flowgen::SceneParams p;
   p.worklist = worklist;
   p.n_units = n_units;
@@ -293,6 +391,9 @@ extern "C" int flowgen_scene_render(
   p.edges = edges;
   p.slabs = slabs;
   p.bgslabs = bgslabs;
+  p.aux = aux;
+  p.bgaux = bgaux;
+  p.bg_band = bg_band;
   p.frames = frames;
   p.flow = flow;
   p.B = B;
@@ -310,11 +411,18 @@ extern "C" int flowgen_scene_render(
   p.PBG = PBG;
   p.CWO = CWO;
   p.CWB = CWB;
+  p.xscan = xscan;
+  p.yscan = yscan;
+  p.xscanb = xscanb;
+  p.yscanb = yscanb;
   p.use_aa = use_aa;
   p.bg_only = bg_only;
   const dim3 block(flowgen::kTileW, flowgen::kTileH);
   const dim3 grid((W + flowgen::kTileW - 1) / flowgen::kTileW,
                   (H + flowgen::kTileH - 1) / flowgen::kTileH, 2 * B);
-  flowgen::scene_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(p);
+  if (has_warp)
+    flowgen::scene_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(p);
+  else
+    flowgen::scene_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }

@@ -3,8 +3,10 @@
 ``scene_from_numpy`` turns a JAX ``Scene`` whose leaves were converted with
 ``jax.tree.map(np.asarray, scene)`` (or any object with the same field
 names) into the port's ``Scene``; ``slabs_from_numpy`` does the same for
-packed texture slabs. Tests use them to feed both renderers the same scene,
-separately from RNG parity. Nothing here imports JAX.
+packed texture slabs, ``bank_from_numpy`` and ``aux_from_numpy`` for the
+mode-9 warp bank and its warp planes. Tests use them to feed both renderers
+the same scene and bank, separately from RNG parity. Nothing here imports
+JAX.
 """
 
 from __future__ import annotations
@@ -45,3 +47,27 @@ def scene_from_numpy(tree, device="cpu") -> Scene:
 def slabs_from_numpy(slabs, device="cpu") -> torch.Tensor:
     """Packed int32 texture slabs (T, SH, SW) -> a tensor on ``device``."""
     return torch.from_numpy(np.asarray(slabs).astype(np.int32)).to(device)
+
+
+def _f32_tensor(x, device):
+    return torch.from_numpy(np.asarray(x).astype(np.float32)).to(device)
+
+
+def bank_from_numpy(bank, device="cpu"):
+    """A mode-9 warp bank with numpy ``flow`` / ``iflow`` (N, H, W, 2) ->
+    the port's ``WarpBank``."""
+    from .compose.render import WarpBank
+
+    return WarpBank(flow=_f32_tensor(bank.flow, device),
+                    iflow=_f32_tensor(bank.iflow, device))
+
+
+def aux_from_numpy(aux, device="cpu"):
+    """The scene kernel's warp planes ``(obj_aux, bg_aux)`` as numpy arrays
+    -> the port's ``WarpAux`` on ``device``, its background bands derived
+    from ``bg_aux``."""
+    from .compose.render import WarpAux
+    from .ops.scene import bg_band_starts
+
+    obj_aux, bg_aux = (_f32_tensor(a, device) for a in aux)
+    return WarpAux(obj_aux, bg_aux, bg_band_starts(bg_aux))

@@ -29,7 +29,8 @@ NVCC_FLAGS = [
 
 # Per library name: the .cu source and the headers it includes.
 LIBRARIES = {
-    "flowgen_scene": ("scene.cu", ("coverage.cuh", "resample.cuh")),
+    "flowgen_scene": ("scene.cu", ("coverage.cuh", "resample.cuh", "warp.cuh")),
+    "flowgen_fields": ("fields.cu", ()),
 }
 
 _loaded = {}
@@ -62,28 +63,50 @@ def _target(name: str) -> Path:
     return build_dir() / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile one library with ``nvcc`` unless it is already built; record
-    the seconds it took and the compiler's log in ``BUILD_INFO``."""
-    if name in BUILD_INFO:
-        return Path(BUILD_INFO[name]["path"])
+def _start(name: str):
+    """Start nvcc for one library unless it is built: (target, tmp, process
+    or None, start time)."""
     t0 = time.time()
     target = _target(name)
+    if target.exists():
+        return target, None, None, t0
+    target.parent.mkdir(parents=True, exist_ok=True)
+    src, _ = LIBRARIES[name]
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return target, tmp, proc, t0
+
+
+def _finish(name: str, started) -> Path:
+    target, tmp, proc, t0 = started
     log = ""
-    if not target.exists():
-        target.parent.mkdir(parents=True, exist_ok=True)
-        src, _ = LIBRARIES[name]
-        tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
-        r = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                           text=True)
-        log = r.stdout
-        if r.returncode != 0:
+    if proc is not None:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
         os.replace(tmp, target)
     BUILD_INFO[name] = {"seconds": time.time() - t0, "log": log,
                         "path": str(target)}
     return target
+
+
+def build(name: str) -> Path:
+    """Compile one library with ``nvcc`` unless it is already built; record
+    the seconds it took and the compiler's log in ``BUILD_INFO``."""
+    if name in BUILD_INFO:
+        return Path(BUILD_INFO[name]["path"])
+    return _finish(name, _start(name))
+
+
+def build_all():
+    """Compile every library, one ``nvcc`` process per source, all started
+    together."""
+    todo = [n for n in LIBRARIES if n not in BUILD_INFO]
+    started = {n: _start(n) for n in todo}
+    for n in todo:
+        _finish(n, started[n])
 
 
 def _load(name: str):
@@ -96,8 +119,20 @@ def load_scene_library():
     lib = _load("flowgen_scene")
     fn = lib.flowgen_scene_render
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 17 + [
+        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 22 + [
             ctypes.c_void_p
         ]
         fn.restype = ctypes.c_int
+    return lib
+
+
+def load_fields_library():
+    lib = _load("flowgen_fields")
+    if lib.flowgen_coarse_solve.argtypes is None:
+        lib.flowgen_coarse_solve.argtypes = [ctypes.c_void_p] * 3 + [
+            ctypes.c_int] * 6 + [ctypes.c_void_p]
+        lib.flowgen_coarse_solve.restype = ctypes.c_int
+        lib.flowgen_hwarp_rows.argtypes = [ctypes.c_void_p] * 3 + [
+            ctypes.c_int] * 6 + [ctypes.c_void_p]
+        lib.flowgen_hwarp_rows.restype = ctypes.c_int
     return lib

@@ -14,6 +14,10 @@ over a staged row block ``rows = slab[w0 : w0 + P, c0 : c0 + CW]`` (the
 coefficient C is rebased by -c0). The clips are relative to the staged
 block, as in the JAX package's kernel (``resample_rows_in_kernel``).
 Texels are RGB packed in one int32, ``(r << 16) | (g << 8) | b``.
+
+Mode 9 adds the plain versions of the JAX package's f32 plane resample and
+its separable displacement warps (f32 and packed RGB), which read their
+taps through the TPU kernels' banded rule (``banded_taps``).
 """
 
 from __future__ import annotations
@@ -270,3 +274,144 @@ def two_pass_window(slab: torch.Tensor, coeffs, x0: int, y0: int, wh: int,
     c0, coeffs = col_window(coeffs, x0, w0, ww, P, CW, SW)
     rows = slab[w0 : w0 + P, c0 : c0 + CW]
     return resample_rows(rows, w0, coeffs, x0, y0, wh, ww)
+
+
+# ---------------------------------------------------------------------------
+# Banded taps and the mode-9 resamplers (plain versions)
+# ---------------------------------------------------------------------------
+#
+# The JAX package's kernels read their two bilinear taps per element through
+# ``_banded_tap_pair``: per (rows_per_block, 128) block of positions, a band
+# of ``n_tiles_scan`` 128-lane source tiles starts at the tile of the block's
+# smallest left tap, and a tap outside that band reads 0. The band is part
+# of the function, so the plain versions below apply it exactly.
+
+
+def banded_taps(src: torch.Tensor, u: torch.Tensor, rows_per_block: int,
+                n_tiles_scan: int, width_valid: int):
+    """Bilinear taps of rows ``src`` (G, Ls), Ls a multiple of 128, at
+    positions ``u`` (G, X), X a multiple of 128 and G of ``rows_per_block``.
+    Positions clip to [0, width_valid - 1]. Returns (p0, p1, fx, ok): the
+    two taps (0 outside the block's band), the lerp weight, and whether the
+    unclipped position lay inside [0, width_valid - 1]."""
+    G, X = u.shape
+    Ls = src.shape[1]
+    n_src = Ls // 128
+    wv = float(width_valid)
+    ok = (u >= 0.0) & (u <= wv - 1.0)
+    uc = torch.clamp(u, 0.0, wv - 1.0)
+    uf = torch.floor(uc)
+    fx = uc - uf
+    u0 = uf.to(torch.int64)
+    u1 = torch.clamp(u0 + 1, max=int(width_valid) - 1)
+    nscan = min(n_tiles_scan, n_src)
+    br = rows_per_block
+    bmin = u0.reshape(G // br, br, X // 128, 128).amin(dim=(1, 3))
+    tile0 = torch.clamp(torch.clamp(bmin >> 7, max=n_src - nscan), min=0)
+    lo = (tile0 * 128).repeat_interleave(br, 0).repeat_interleave(128, 1)
+    hi = lo + nscan * 128
+
+    def tap(idx):
+        v = torch.gather(src, 1, idx)
+        return torch.where((idx >= lo) & (idx < hi), v, torch.zeros_like(v))
+
+    return tap(u0), tap(u1), fx, ok
+
+
+def banded_lerp(src, u, rows_per_block, n_tiles_scan, width_valid,
+                clamp_oob=False):
+    """The JAX package's ``_banded_lerp_rows``: ``det_lerp`` of the banded
+    taps; positions outside [0, width_valid - 1] give 0 unless
+    ``clamp_oob`` holds them at the edge value."""
+    p0, p1, fx, ok = banded_taps(src, u, rows_per_block, n_tiles_scan,
+                                 width_valid)
+    v = p0 + (p1 - p0) * fx
+    return v if clamp_oob else torch.where(ok, v, torch.zeros_like(v))
+
+
+def _pad_lanes(x: torch.Tensor, lanes: int):
+    return torch.nn.functional.pad(x, (0, lanes - x.shape[-1]))
+
+
+def resample_rows_f32(rows: torch.Tensor, w0: int, coeffs, x0: int, y0: int,
+                      wh: int, ww: int, x_tiles_scan: int, y_tiles_scan: int,
+                      pass2_lanes: int):
+    """Single-plane f32 two-pass affine resample of a (wh, ww) window from
+    staged field rows ``rows`` (P, SW) holding rows [w0, w0+P) (the JAX
+    package's ``resample_rows_f32``): pass 1 in 128-row chunks, each with
+    its own band, pass 2 over (128, 128) blocks of the transposed pass-1
+    rows, whose scratch is ``pass2_lanes`` wide. Returns (wh, ww) f32."""
+    P, SW = rows.shape
+    dev = rows.device
+    A, B, C, c, d, f = (float(v) for v in coeffs)
+    w0f = float(F32(w0))
+    xg = torch.arange(ww, dtype=torch.float32, device=dev) + float(x0)
+    t1 = torch.empty((P, ww), dtype=torch.float32, device=dev)
+    for r0 in range(0, P, PASS1_CHUNK):
+        rc = min(PASS1_CHUNK, P - r0)
+        wg = (torch.arange(rc, dtype=torch.float32, device=dev)
+              + float(F32(w0f + r0)))[:, None]
+        u = torch.clamp(A * xg[None, :] + B * wg + C, 0.0, float(SW - 1))
+        t1[r0 : r0 + rc] = banded_lerp(rows[r0 : r0 + rc], u, rc,
+                                       x_tiles_scan, SW, clamp_oob=True)
+    whp = _round_up(wh, 128)
+    xchunk = 128 if ww >= 128 else ww
+    yg = torch.arange(whp, dtype=torch.float32, device=dev) + float(y0)
+    v = torch.clamp(c * xg[:, None] + d * yg[None, :] + f - w0f, 0.0,
+                    float(P - 1))
+    outT = banded_lerp(_pad_lanes(t1.t(), pass2_lanes), v, xchunk,
+                       y_tiles_scan, P, clamp_oob=True)
+    return outT[:, :wh].t()
+
+
+def _pass1_u(gdisp, x0, ex0, ww):
+    xs = torch.arange(ww, dtype=torch.float32, device=gdisp.device) + float(x0)
+    return (xs[None, :] + gdisp) - float(ex0)
+
+
+def _pass2_v(vdisp, y0, ey0, wh, whp):
+    vdT = _pad_lanes(vdisp.t(), whp)
+    ys = torch.arange(whp, dtype=torch.float32, device=vdisp.device) + float(y0)
+    return (ys[None, :] + vdT) - float(ey0)
+
+
+def displace_warp(src, gdisp, vdisp, x0, y0, ex0, ey0, wh, ww, whE, wwE,
+                  x_scan=3, y_scan=3):
+    """Separable bounded-displacement warp of an f32 plane (the JAX
+    package's ``displace_warp_in_kernel``): ``src`` (whE, wwE) with frame
+    origin (ey0, ex0); pass 1 reads row w at ``x + gdisp[w, x]``, pass 2
+    reads the pass-1 rows at ``y + vdisp[y, x]``. Positions outside the
+    source give 0. Returns (wh, ww)."""
+    tmp = banded_lerp(src, _pass1_u(gdisp, x0, ex0, ww), whE, x_scan, wwE)
+    whp = _round_up(wh, 128)
+    out = banded_lerp(_pad_lanes(tmp.t(), _round_up(whE, 128)),
+                      _pass2_v(vdisp, y0, ey0, wh, whp), 128, y_scan, whE)
+    return out[:, :wh].t()
+
+
+def _lerp_packed(p0, p1, fx, ok):
+    out = []
+    for a0, a1 in zip(unpack_rgb(p0), unpack_rgb(p1)):
+        v = a0 + (a1 - a0) * fx
+        out.append(torch.where(ok, v, torch.zeros_like(v)))
+    return out
+
+
+def displace_warp_rgb(src, gdisp, vdisp, x0, y0, ex0, ey0, wh, ww, whE, wwE,
+                      pass2_lanes, x_scan=3, y_scan=3):
+    """Packed-RGB twin of :func:`displace_warp` (the JAX package's
+    ``displace_warp_rgb_in_kernel``): the pass-1 result is rounded to u8 and
+    repacked before pass 2. ``pass2_lanes`` is the width of the JAX kernel's
+    transposed scratch (shared with the background warp). Returns three
+    (wh, ww) f32 planes."""
+    p0, p1, fx, ok = banded_taps(src, _pass1_u(gdisp, x0, ex0, ww), whE,
+                                 x_scan, wwE)
+    r, g, b = _lerp_packed(p0, p1, fx, ok)
+    tmp = ((torch.round(r).to(torch.int32) << 16)
+           | (torch.round(g).to(torch.int32) << 8)
+           | torch.round(b).to(torch.int32))
+    whp = _round_up(wh, 128)
+    q0, q1, fy, okv = banded_taps(_pad_lanes(tmp.t(), pass2_lanes),
+                                  _pass2_v(vdisp, y0, ey0, wh, whp), 128,
+                                  y_scan, whE)
+    return tuple(v[:, :wh].t() for v in _lerp_packed(q0, q1, fy, okv))

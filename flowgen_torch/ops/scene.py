@@ -8,19 +8,23 @@ to u8, plus the affine background flow), then every (object, tile) work
 unit of each frame in painter's order: exact-area coverage with the
 composite screen algebra, the object texture (frame 0: the slab's identity
 window; frame 1: the two-pass affine resample), ``round(f(1-m) + t m)``
-blending, and the frame-0 flow overwrite under the binary mask.
+blending, and the frame-0 flow overwrite under the binary mask. In mode 9
+a deforming object's frame 1 is evaluated on an expanded window and
+displaced through its bank slot's warp planes, a deforming background's
+frame 1 likewise on an extended grid, and the forward warp field adds to
+the flow at the moved positions.
 
 ``scene_render`` launches the hand-written CUDA kernel
-(``csrc/scene.cu``) for CUDA tensors and runs ``scene_render_plain`` for CPU
-tensors. ``scene_render_plain`` restates the JAX kernel's unit loop
-literally: windows, ownership rectangles, and the staged two-pass resample
-(pass 1 over all P rows, then pass 2).
+(``csrc/scene.cu``, ``csrc/warp.cuh``) for CUDA tensors and runs
+``scene_render_plain`` for CPU tensors. ``scene_render_plain`` restates the
+JAX kernel's unit loop literally: windows, ownership rectangles, the staged
+two-pass resample (pass 1 over all P rows, then pass 2) and, in mode 9, the
+staged displacement warps with their banded taps.
 
-Only the rigid branch with ``tsplit == 1`` is ported. The mode-9 warp
-branch, the 2x2 sub-window / quadrant branch (modes 11 and 13), inverse
-flow and the id images are not: ``compose/fused.py:check_slice`` refuses
-the configurations that need them, and ``scene_render`` refuses
-``tsplit != 1``.
+The rigid and warp branches with ``tsplit == 1`` are ported. The 2x2
+sub-window / quadrant branch (modes 11 and 13), inverse flow and the id
+images are not: ``compose/fused.py:check_slice`` refuses the configurations
+that need them, and ``scene_render`` refuses ``tsplit != 1``.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ import numpy as np
 import torch
 
 from . import resample as resamp
-from .._fp import div
+from .._fp import div, f32
 
 # Window tile size: one unit of object evaluation.
 WIN_H = 192
@@ -48,6 +52,7 @@ WARP_EY = 56
 WARP_EX = 64
 BG_EY = 96
 BG_EX = 128
+IN_THR = 1.0 - 0.5 / 255.0   # warped-binary threshold
 
 # bgm layout (per sample, f32).
 BGM_T0 = 0      # frame-0 output->source affine (2x3 row-major)
@@ -293,14 +298,19 @@ def _check_branch(tsplit):
 
 
 def scene_render(bg_meta, omi, omf, tmi, tmf, bgm, edges, slabs, bgslabs,
-                 worklist, n_units, *, spec_key, use_aa=True, bg_only=False):
+                 worklist, n_units, warp_aux=None, bgaux=None, bg_band=None,
+                 *, spec_key, use_aa=True, bg_only=False):
     """Render a batch of scenes. Inputs (built by
     ``compose/fused.py:scene_tables``): ``bg_meta`` (B,3) [bg texture, bg
     warp flag, bg warp slot], ``omi`` (B,K,2,OMI_SIZE) i32, ``omf``
     (B,K,2,OMF_SIZE) f32, ``tmi`` (B,K,2,MAX_TILES,TMI_SIZE) i32, ``tmf``
     the same in f32, ``bgm`` (B,BGM_SIZE) f32, ``edges`` (B,K,2,4,EP) f32,
     ``slabs`` (T,SHs,SWs) i32 and ``bgslabs`` (T,SHb,SWb) i32 packed slabs,
-    and the painter-order work lists of :func:`build_worklists`.
+    and the painter-order work lists of :func:`build_worklists`. Mode 9
+    passes the bank's warp planes ``warp_aux`` (N,4,H,W) and ``bgaux``
+    (N,2,H+2*BG_EY,W) and the bands :func:`bg_band_starts` derives from
+    ``bgaux`` (the fields of ``compose/render.py:WarpAux``, built by
+    ``warpfields/generator.py:make_bank_and_aux``).
     ``spec_key`` = (P, PBG, xs, ys, xsb, ysb, tsplit, cw_obj, cw_bg, H, W).
     ``bg_only`` renders the backgrounds and the flow init only.
 
@@ -308,28 +318,67 @@ def scene_render(bg_meta, omi, omf, tmi, tmf, bgm, edges, slabs, bgslabs,
     ``scene_render.launches``); CPU tensors run :func:`scene_render_plain`.
     Returns (frames (B,2,H,W) int32 packed RGB, flow (B,2,H,W) f32)."""
     _check_branch(spec_key[6])
+    if warp_aux is not None:
+        _check_warp_planes(warp_aux, bgaux, spec_key[-2], spec_key[-1])
     if slabs.device.type == "cpu":
         return scene_render_plain(
             bg_meta, omi, omf, tmi, tmf, bgm, edges, slabs, bgslabs,
-            worklist, n_units, spec_key=spec_key, use_aa=use_aa,
-            bg_only=bg_only,
+            worklist, n_units, warp_aux, bgaux, bg_band, spec_key=spec_key,
+            use_aa=use_aa, bg_only=bg_only,
         )
     if slabs.device.type != "cuda":
         raise ValueError(f"scene_render: unsupported device {slabs.device}")
     return _scene_render_cuda(
         bg_meta, omi, omf, tmi, tmf, bgm, edges, slabs, bgslabs, worklist,
-        n_units, spec_key, use_aa, bg_only,
+        n_units, warp_aux, bgaux, bg_band, spec_key, use_aa, bg_only,
     )
+
+
+def _check_warp_planes(warp_aux, bgaux, H, W):
+    N = warp_aux.shape[0]
+    if tuple(warp_aux.shape) != (N, 4, H, W) or tuple(bgaux.shape) != (
+            N, 2, H + 2 * BG_EY, W):
+        raise ValueError(
+            f"scene_render: warp planes {tuple(warp_aux.shape)} and "
+            f"{tuple(bgaux.shape)} do not fit frames of {H}x{W}")
+
+
+def bg_band_starts(bgaux):
+    """The band the JAX kernel's background warp scans in pass 1
+    (``_banded_tap_pair``, 4 tiles of 128 lanes from the tile of a block's
+    smallest left tap): its first tile for every (bank slot, static
+    background tile, 128-lane tile of it), int32 (N, n_bg_tiles, ww // 128),
+    for background planes ``bgaux`` (N, 2, H + 2*BG_EY, W). A block is the
+    tile's whB displaced rows by 128 lanes; its taps depend only on the
+    slot's gdisp, so the bank producer derives the bands once per epoch and
+    the kernel reads them."""
+    H, W = bgaux.shape[2] - 2 * BG_EY, bgaux.shape[3]
+    wh, ww = min(WIN_H, H), min(WIN_W, W)
+    geo = _warp_geometry(H, W)
+    whB, WB = geo["whB"], geo["WB"]
+    n_src = WB // 128
+    nscan = min(4, n_src)
+    N = bgaux.shape[0]
+    xs = torch.arange(ww, dtype=torch.float32, device=bgaux.device)
+    out = []
+    for (y0s, x0s) in _bg_tiles(H, W, wh, ww):
+        u = (xs + float(x0s) + bgaux[:, 0, y0s : y0s + whB, x0s : x0s + ww]
+             ) - float(-BG_EX)
+        u0 = torch.floor(torch.clamp(u, 0.0, float(WB - 1))).to(torch.int32)
+        m = u0.reshape(N, whB, ww // 128, 128).amin(dim=(1, 3))
+        out.append(torch.clamp(torch.clamp(m >> 7, max=n_src - nscan), min=0))
+    return torch.stack(out, dim=1).to(torch.int32).contiguous()
 
 
 scene_render.launches = 0
 
 
 def _scene_render_cuda(bg_meta, omi, omf, tmi, tmf, bgm, edges, slabs,
-                       bgslabs, worklist, n_units, spec_key, use_aa, bg_only):
+                       bgslabs, worklist, n_units, warp_aux, bgaux, bg_band,
+                       spec_key, use_aa, bg_only):
     from ._build import load_scene_library
 
-    P, PBG, _, _, _, _, _, cwo, cwb, H, W = spec_key
+    P, PBG, xs, ys, xsb, ysb, _, cwo, cwb, H, W = spec_key
     B, K = omi.shape[0], omi.shape[1]
     EP = edges.shape[-1]
     dev = slabs.device
@@ -346,6 +395,16 @@ def _scene_render_cuda(bg_meta, omi, omf, tmi, tmf, bgm, edges, slabs,
         "slabs": (slabs, torch.int32, None),
         "bgslabs": (bgslabs, torch.int32, None),
     }
+    has_warp = warp_aux is not None
+    if has_warp:
+        if bg_band is None:
+            raise ValueError("scene_render: mode 9 needs bg_band "
+                             "(bg_band_starts of bgaux)")
+        n_bg = len(_bg_tiles(H, W, min(WIN_H, H), min(WIN_W, W)))
+        ins["warp_aux"] = (warp_aux, torch.float32, None)
+        ins["bgaux"] = (bgaux, torch.float32, None)
+        ins["bg_band"] = (bg_band, torch.int32, (
+            warp_aux.shape[0], n_bg, min(WIN_W, W) // 128))
     args = {}
     for name, (t, dt, shape) in ins.items():
         if t.device != dev or t.dtype != dt:
@@ -361,21 +420,22 @@ def _scene_render_cuda(bg_meta, omi, omf, tmi, tmf, bgm, edges, slabs,
         raise ValueError("scene_render: slabs must be (T, SH, SW)")
     T, SHs, SWs = slabs.shape
     Tb, SHb, SWb = bgslabs.shape
-    if H % 8 or W % 32 or EP < 7 * 120:
-        raise ValueError("scene_render: frame dims must be multiples of (8, 32)")
+    if H % 8 or W % 128 or EP < 7 * 120:
+        raise ValueError("scene_render: frame dims must be multiples of (8, 128)")
     frames = torch.empty((B, 2, H, W), dtype=torch.int32, device=dev)
     flow = torch.empty((B, 2, H, W), dtype=torch.float32, device=dev)
     lib = load_scene_library()
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    ptr = lambda t: ctypes.c_void_p(0 if t is None else t.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.flowgen_scene_render(
         ptr(args["worklist"]), ptr(args["n_units"]), ptr(args["bg_meta"]),
         ptr(args["omi"]), ptr(args["omf"]), ptr(args["tmi"]),
         ptr(args["tmf"]), ptr(args["bgm"]), ptr(args["edges"]),
-        ptr(args["slabs"]), ptr(args["bgslabs"]), ptr(frames), ptr(flow),
+        ptr(args["slabs"]), ptr(args["bgslabs"]), ptr(warp_aux), ptr(bgaux),
+        ptr(bg_band), ptr(frames), ptr(flow),
         B, K, EP, H, W, T, SHs, SWs, Tb, SHb, SWb, P, PBG,
-        min(cwo, SWs), min(cwb, SWb), int(bool(use_aa)), int(bool(bg_only)),
-        ctypes.c_void_p(stream),
+        min(cwo, SWs), min(cwb, SWb), xs, ys, xsb, ysb, int(has_warp),
+        int(bool(use_aa)), int(bool(bg_only)), ctypes.c_void_p(stream),
     )
     if err != 0:
         raise RuntimeError(f"scene kernel launch failed: CUDA error {err}")
@@ -511,19 +571,63 @@ def _coverage_window(er, om, of, oy, ox, gh, gw, dev):
     return aa_acc, in_acc
 
 
+def _warp_geometry(H, W):
+    """Static mode-9 window geometry (the JAX kernel's): expanded-window
+    size, its texture sub-tile origins, the background's extended grid
+    and its tiles."""
+    wh, ww = min(WIN_H, H), min(WIN_W, W)
+    whE = min(wh + 2 * WARP_EY, H)
+    wwE = min(ww + 2 * WARP_EX, W)
+    HB, WB = H + 2 * BG_EY, W + 2 * BG_EX
+    whB = min(wh + 2 * BG_EY, HB)
+    ext_tiles = [
+        (min(-BG_EY + ty * wh, H + BG_EY - wh),
+         min(-BG_EX + tx * ww, W + BG_EX - ww))
+        for ty in range(-(-HB // wh))
+        for tx in range(-(-WB // ww))
+    ]
+    return {
+        "whE": whE, "wwE": wwE, "HB": HB, "WB": WB, "whB": whB,
+        "LYS": [0] if whE == wh else [0, whE - wh],
+        "LXS": [0] if wwE == ww else [0, wwE - ww],
+        "ext_tiles": ext_tiles,
+        # Width of the JAX kernel's transposed packed-RGB scratch, shared by
+        # the object and background warps.
+        "rgb_lanes": max(_round_up(whE, 128), _round_up(whB, 128)),
+    }
+
+
+def _two_pass_split(mm):
+    m00, m01, m02, m10, m11, m12 = (F32(v) for v in mm)
+    B_ = m01 / m11
+    return (m00 - B_ * m10, B_, m02 - B_ * m12, m10, m11, m12)
+
+
+def _window_grid(y0, x0, wh, ww, dev):
+    py = (torch.arange(wh, device=dev) + y0).to(torch.float32)[:, None]
+    px = (torch.arange(ww, device=dev) + x0).to(torch.float32)[None, :]
+    return px.expand(wh, ww), py.expand(wh, ww)
+
+
 def scene_render_plain(bg_meta, omi, omf, tmi, tmf, bgm, edges, slabs,
-                       bgslabs, worklist, n_units, *, spec_key, use_aa=True,
-                       bg_only=False):
+                       bgslabs, worklist, n_units, warp_aux=None, bgaux=None,
+                       bg_band=None, *, spec_key, use_aa=True, bg_only=False):
     """Plain PyTorch restatement of the scene kernel on any device: per
     sample, the background window tiles in static order, then each frame's
     work units in painter's order on (wh, ww) windows with ownership masks.
-    Same inputs and outputs as :func:`scene_render`."""
-    P, PBG, _, _, _, _, tsplit, cwo, cwb, H, W = spec_key
+    Mode 9 (``warp_aux`` given) follows the JAX kernel's warp branch
+    literally: staged passes, expanded windows, banded taps. Same inputs and
+    outputs as :func:`scene_render`; the kernel's precomputed ``bg_band`` is
+    not read, as the staged passes find their bands themselves."""
+    P, PBG, xs, ys, xsb, ysb, tsplit, cwo, cwb, H, W = spec_key
     _check_branch(tsplit)
+    has_warp = warp_aux is not None
     dev = slabs.device
     B, K = omi.shape[0], omi.shape[1]
     wh, ww = min(WIN_H, H), min(WIN_W, W)
     MAXW = K * MAX_TILES
+    Pp = _round_up(max(P, PBG), 128)
+    geo = _warp_geometry(H, W)
     tabs = [t.detach().cpu().numpy() for t in
             (bg_meta, omi, omf, tmi, tmf, bgm, worklist, n_units)]
     frames = torch.empty((B, 2, H, W), dtype=torch.int32, device=dev)
@@ -532,31 +636,81 @@ def scene_render_plain(bg_meta, omi, omf, tmi, tmf, bgm, edges, slabs,
     pxF = torch.arange(W, dtype=torch.float32, device=dev)[None, :].expand(H, W)
     py_w = torch.arange(wh, device=dev)[:, None]
     px_w = torch.arange(ww, device=dev)[None, :]
+
+    def sample_plane(slot, ch, coeffs, y0, x0, xsc, ysc):
+        # sample_plane_affine: warp plane ch of bank slot through an
+        # output -> plane affine, min(P, H) staged rows.
+        PF = min(P, H)
+        w0 = resamp.pass1_row_start(coeffs, x0, y0, wh, ww, PF, H)
+        rows = warp_aux[slot, ch, w0 : w0 + PF, :W]
+        return resamp.resample_rows_f32(rows, w0, coeffs, x0, y0, wh, ww,
+                                        xsc, ysc, Pp)
+
+    def bg_window(bgm_b, btid, frame, oy, ox):
+        base = BGM_T0 if frame == 0 else BGM_T1
+        coeffs = resamp.fold_coeffs_scalar(
+            bgm_b[base : base + 6], ox + ww / 2.0, oy + wh / 2.0,
+            bgm_b[BGM_SRCW], bgm_b[BGM_SRCH], float(SLAB_MARGIN),
+        )
+        r, g, bl = resamp.two_pass_window(bgslabs[btid], coeffs, ox, oy, wh,
+                                          ww, PBG, cwb)
+        return _pack3(torch.round(r), torch.round(g), torch.round(bl))
+
     for b in range(B):
         bgmeta_b, omi_b, omf_b, tmi_b, tmf_b, bgm_b, wl_b, nw_b = (
             t[b] for t in tabs
         )
         btid = int(bgmeta_b[0])
+        bg_warp = has_warp and int(bgmeta_b[1]) != 0
+        bslot = int(bgmeta_b[2])
         accs = []
         for frame in (0, 1):
             acc = torch.empty((H, W), dtype=torch.int32, device=dev)
-            base = BGM_T0 if frame == 0 else BGM_T1
-            for (y0s, x0s) in _bg_tiles(H, W, wh, ww):
-                coeffs = resamp.fold_coeffs_scalar(
-                    bgm_b[base : base + 6], x0s + ww / 2.0, y0s + wh / 2.0,
-                    bgm_b[BGM_SRCW], bgm_b[BGM_SRCH], float(SLAB_MARGIN),
-                )
-                r, g, bl = resamp.two_pass_window(
-                    bgslabs[btid], coeffs, x0s, y0s, wh, ww, PBG, cwb
-                )
-                acc[y0s : y0s + wh, x0s : x0s + ww] = _pack3(
-                    torch.round(r), torch.round(g), torch.round(bl)
-                )
+            if frame == 1 and bg_warp:
+                # Plain frame 1 on the extended grid, then displaced per
+                # output tile through the x2-upscaled field's planes.
+                work = torch.zeros((geo["HB"], geo["WB"]), dtype=torch.int32,
+                                   device=dev)
+                for (eys, exs) in geo["ext_tiles"]:
+                    work[eys + BG_EY : eys + BG_EY + wh,
+                         exs + BG_EX : exs + BG_EX + ww] = bg_window(
+                             bgm_b, btid, 1, eys, exs)
+                whB = geo["whB"]
+                for (y0s, x0s) in _bg_tiles(H, W, wh, ww):
+                    gd = bgaux[bslot, 0, y0s : y0s + whB, x0s : x0s + ww]
+                    vd = bgaux[bslot, 1, y0s + BG_EY : y0s + BG_EY + wh,
+                               x0s : x0s + ww]
+                    r, g, bl = resamp.displace_warp_rgb(
+                        work[y0s : y0s + whB], gd, vd, x0s, y0s, -BG_EX,
+                        y0s - BG_EY, wh, ww, whB, geo["WB"], geo["rgb_lanes"],
+                        x_scan=4, y_scan=4,
+                    )
+                    acc[y0s : y0s + wh, x0s : x0s + ww] = _pack3(
+                        torch.round(r), torch.round(g), torch.round(bl))
+            else:
+                for (y0s, x0s) in _bg_tiles(H, W, wh, ww):
+                    acc[y0s : y0s + wh, x0s : x0s + ww] = bg_window(
+                        bgm_b, btid, frame, y0s, x0s)
             accs.append(acc)
         m = [float(F32(v)) for v in bgm_b[BGM_PIX : BGM_PIX + 6]]
         fx = (m[0] * pxF + m[1] * pyF + m[2]) - pxF
         fy = (m[3] * pxF + m[4] * pyF + m[5]) - pyF
         flw = torch.stack([fx, fy])
+        if bg_warp:
+            # Forward-field flow at the moved positions, x2 magnitude, where
+            # they land inside the 2W x 2H big texture.
+            faff = _two_pass_split(bgm_b[BGM_FAFF : BGM_FAFF + 6])
+            for (y0s, x0s) in _bg_tiles(H, W, wh, ww):
+                px, py = _window_grid(y0s, x0s, wh, ww, dev)
+                mvx = m[0] * px + m[1] * py + m[2] + (W / 2.0)
+                mvy = m[3] * px + m[4] * py + m[5] + (H / 2.0)
+                inb = ((mvx >= 0) & (mvx < 2.0 * W) & (mvy >= 0)
+                       & (mvy < 2.0 * H)).to(torch.float32)
+                for ch in (0, 1):
+                    wf = sample_plane(bslot, 2 + ch, faff, y0s, x0s, xsb, ysb)
+                    win = flw[ch, y0s : y0s + wh, x0s : x0s + ww]
+                    flw[ch, y0s : y0s + wh, x0s : x0s + ww] = (
+                        win + 2.0 * wf * inb)
         if not bg_only:
             for frame in (0, 1):
                 acc = accs[frame]
@@ -567,27 +721,34 @@ def scene_render_plain(bg_meta, omi, omf, tmi, tmf, bgm, edges, slabs,
                     y0, x0 = int(tm[TMI_Y0]) & ~7, int(tm[TMI_X0]) & ~127
                     om, of = omi_b[k, frame], omf_b[k, frame]
                     er = edges[b, k, frame].detach().cpu().numpy()
-                    cov_aa, cov_in = _coverage_window(
-                        er, om, of, y0, x0, wh, ww, dev
-                    )
+                    warping = has_warp and int(om[OMI_WARP]) != 0
+                    slot = int(om[OMI_SLOT])
                     pyi, pxi = py_w + y0, px_w + x0
                     own = (
                         (pyi >= int(tm[TMI_OY0])) & (pyi < int(tm[TMI_OY1]))
                         & (pxi >= int(tm[TMI_OX0])) & (pxi < int(tm[TMI_OX1]))
                     ).to(torch.float32)
-                    mm = (cov_aa if use_aa else cov_in) * own
                     tid = int(om[OMI_TEX])
-                    if frame == 0:
-                        sy = (SLAB_MARGIN + y0) & ~7
-                        sx = (SLAB_MARGIN + x0) & ~127
-                        tex = resamp.unpack_rgb(
-                            slabs[tid, sy : sy + wh, sx : sx + ww]
-                        )
+                    if frame == 1 and warping:
+                        mm, tex = _warp_unit(
+                            er, om, of, slabs[tid], warp_aux[slot], y0, x0,
+                            own, use_aa, P, cwo, H, W, geo, dev)
                     else:
-                        tex = resamp.two_pass_window(
-                            slabs[tid], tmf_b[k, 1, t, :6], x0, y0, wh, ww,
-                            P, cwo,
+                        cov_aa, cov_in = _coverage_window(
+                            er, om, of, y0, x0, wh, ww, dev
                         )
+                        mm = (cov_aa if use_aa else cov_in) * own
+                        if frame == 0:
+                            sy = (SLAB_MARGIN + y0) & ~7
+                            sx = (SLAB_MARGIN + x0) & ~127
+                            tex = resamp.unpack_rgb(
+                                slabs[tid, sy : sy + wh, sx : sx + ww]
+                            )
+                        else:
+                            tex = resamp.two_pass_window(
+                                slabs[tid], tmf_b[k, 1, t, :6], x0, y0, wh,
+                                ww, P, cwo,
+                            )
                     win = acc[y0 : y0 + wh, x0 : x0 + ww]
                     out = [
                         torch.round(f * (1.0 - mm) + tc * mm)
@@ -596,16 +757,69 @@ def scene_render_plain(bg_meta, omi, omf, tmi, tmf, bgm, edges, slabs,
                     acc[y0 : y0 + wh, x0 : x0 + ww] = _pack3(*out)
                     if frame == 0:
                         mi = cov_in * own
-                        pxw = pxi.to(torch.float32).expand(wh, ww)
-                        pyw = pyi.to(torch.float32).expand(wh, ww)
+                        pxw, pyw = _window_grid(y0, x0, wh, ww, dev)
                         mo = [float(F32(v)) for v in of[OMF_MOTION : OMF_MOTION + 6]]
-                        ofx = (mo[0] * pxw + mo[1] * pyw + mo[2]) - pxw
-                        ofy = (mo[3] * pxw + mo[4] * pyw + mo[5]) - pyw
-                        wx = flw[0, y0 : y0 + wh, x0 : x0 + ww]
-                        wy = flw[1, y0 : y0 + wh, x0 : x0 + ww]
-                        flw[0, y0 : y0 + wh, x0 : x0 + ww] = ofx * mi + wx * (1.0 - mi)
-                        flw[1, y0 : y0 + wh, x0 : x0 + ww] = ofy * mi + wy * (1.0 - mi)
+                        mvx = mo[0] * pxw + mo[1] * pyw + mo[2]
+                        mvy = mo[3] * pxw + mo[4] * pyw + mo[5]
+                        ofl = (mvx - pxw, mvy - pyw)
+                        for ch in (0, 1):
+                            w_ = flw[ch, y0 : y0 + wh, x0 : x0 + ww]
+                            flw[ch, y0 : y0 + wh, x0 : x0 + ww] = (
+                                ofl[ch] * mi + w_ * (1.0 - mi))
+                        if warping:
+                            # + forward field at the moved positions, inside
+                            # the frame, under the same mask.
+                            inb = ((mvx >= 0) & (mvx < W) & (mvy >= 0)
+                                   & (mvy < H)).to(torch.float32) * mi
+                            co = _two_pass_split(of[OMF_MOTION : OMF_MOTION + 6])
+                            for ch in (0, 1):
+                                wf = sample_plane(slot, 2 + ch, co, y0, x0,
+                                                  xs, ys)
+                                flw[ch, y0 : y0 + wh, x0 : x0 + ww] = (
+                                    flw[ch, y0 : y0 + wh, x0 : x0 + ww]
+                                    + wf * inb)
         frames[b, 0] = accs[0]
         frames[b, 1] = accs[1]
         flow[b] = flw
     return frames, flow
+
+
+def _warp_unit(er, om, of, slab, aux, y0, x0, own, use_aa, P, cwo, H, W, geo,
+               dev):
+    """Frame 1 of a deforming object's unit (the JAX kernel's warping
+    branch): coverage and the affine-resampled texture on the expanded
+    window, each texture sub-tile folded at its own centre and rounded to
+    u8, then all three displaced through the unit's inverse-field planes.
+    Returns the blend mask and the texture planes of the (wh, ww) window."""
+    wh, ww = min(WIN_H, H), min(WIN_W, W)
+    whE, wwE = geo["whE"], geo["wwE"]
+    ey0 = min(max(y0 - WARP_EY, 0), H - whE) & ~7
+    ex0 = min(max(x0 - WARP_EX, 0), W - wwE)
+    gd = aux[0, ey0 : ey0 + whE, x0 : x0 + ww]
+    vd = aux[1, y0 : y0 + wh, x0 : x0 + ww]
+    cov_aa, cov_in = _coverage_window(er, om, of, ey0, ex0, whE, wwE, dev)
+    mm = of[OMF_MOTION : OMF_MOTION + 6]
+    texE = torch.zeros((whE, wwE), dtype=torch.int32, device=dev)
+    for ly in geo["LYS"]:
+        for lx in geo["LXS"]:
+            oy, ox = ey0 + ly, ex0 + lx
+            coeffs = resamp.fold_coeffs_scalar(
+                mm, ox + ww / 2.0, oy + wh / 2.0, float(W), float(H),
+                float(SLAB_MARGIN),
+            )
+            r, g, b = resamp.two_pass_window(slab, coeffs, ox, oy, wh, ww, P,
+                                             cwo)
+            texE[ly : ly + wh, lx : lx + ww] = _pack3(
+                torch.round(r), torch.round(g), torch.round(b))
+
+    def disp(src):
+        return resamp.displace_warp(src, gd, vd, x0, y0, ex0, ey0, wh, ww,
+                                    whE, wwE)
+
+    if use_aa:
+        m = disp(cov_aa)
+    else:
+        m = (disp(cov_in) >= f32(IN_THR)).to(torch.float32)
+    tex = resamp.displace_warp_rgb(texE, gd, vd, x0, y0, ex0, ey0, wh, ww,
+                                   whE, wwE, geo["rgb_lanes"])
+    return m * own, tex

@@ -25,6 +25,7 @@ from ..config import DataGenConfig
 from ..ops.scene import prepare_bg_slabs, prepare_slabs
 from ..params.sampler import sample_scene_batch
 from ..random.streams import root_key
+from ..warpfields import generator as warpgen
 
 
 def resolve_device(device=None) -> torch.device:
@@ -45,9 +46,9 @@ def _adapt_output(images0, images1, flow0, flow1, cfg: DataGenConfig,
     """Output-compatibility transforms: BGR channel order, NCHW layout and
     the disparity output of the horizontal-only modes."""
     if cfg.warp_oob == "nan" and cfg.mode_spec.warp_p > 0.0:
-        raise NotImplementedError(
-            "warp_oob='nan' belongs to mode 9 (ROADMAP.md, port queue item 4)"
-        )
+        # Decode the bank's OOB sentinel back into NaN forward flow.
+        flow0 = torch.where(torch.abs(flow0) > warpgen.OOB_FLOW_THRESH,
+                            torch.full_like(flow0, float("nan")), flow0)
     if cfg.channel_order == "bgr":
         images0 = images0.flip(-1)
         images1 = images1.flip(-1)
@@ -92,12 +93,16 @@ def make_slab_packer(cfg: DataGenConfig, device):
 
 
 def generate_batch(root, step, atlas, cfg: DataGenConfig, base_index=None,
-                   slabs=None, device=None):
+                   slabs=None, device=None, warp_aux=None):
     """One batch: samples ``cfg.batch_size`` scenes at global indices
     ``base_index .. base_index+B-1`` (default ``step*B``) and renders them.
     ``atlas`` is a (T, 2H, 2W, 3) texture bank; ``slabs`` optionally the
     pre-packed ``(obj_slabs, bg_slabs, (src_h, src_w))``. ``root`` is a key
-    from ``random.streams.root_key`` or an int seed."""
+    from ``random.streams.root_key`` or an int seed. In mode 9 the warp
+    planes of the step's bank epoch (the ``WarpAux`` of
+    ``warpfields/generator.py:make_bank_and_aux``) may be passed
+    (``make_generate_fn`` caches them per epoch); otherwise they are built
+    here from ``(root, step)``."""
     check_slice(cfg)
     dev = resolve_device(device)
     if not torch.is_tensor(root):
@@ -110,21 +115,93 @@ def generate_batch(root, step, atlas, cfg: DataGenConfig, base_index=None,
     if slabs is None:
         slabs = make_slab_packer(cfg, dev)(atlas)
     obj_slabs, bg_slabs, src_hw = slabs
-    scenes = sample_scene_batch(root, indices, cfg, n_warp_slots=1)
-    i0, i1, f0 = render_batch_fused(scenes, obj_slabs, bg_slabs, src_hw, cfg)
+    n_slots = 1
+    if cfg.mode_spec.warp_p > 0.0:
+        n_slots = warpgen.bank_size(cfg)
+        if warp_aux is None:
+            _, warp_aux = warpgen.make_bank_and_aux(root, step, cfg)
+    scenes = sample_scene_batch(root, indices, cfg, n_warp_slots=n_slots)
+    i0, i1, f0 = render_batch_fused(scenes, obj_slabs, bg_slabs, src_hw, cfg,
+                                    warp_aux=warp_aux)
     return _adapt_output(i0, i1, f0, None, cfg)
+
+
+def _same_root(a, b) -> bool:
+    if a is b:
+        return True
+    if torch.is_tensor(a) and torch.is_tensor(b):
+        return a.device == b.device and torch.equal(a, b)
+    return not torch.is_tensor(a) and not torch.is_tensor(b) and a == b
+
+
+class BankEpochCache:
+    """What ``build_fn(root, step)`` makes for a bank epoch (``step //
+    reuse``) of one root, built once per (root, epoch); a call with another
+    root drops what was cached. :meth:`prefetch_next`, called after a step's
+    work is enqueued, builds the next epoch on an epoch's last step. The
+    build launches its many small ops from the host, so this moves the
+    epoch's host time to the tail of the step before the boundary and costs
+    all of it there; it hides only the device time that overlaps with the
+    step's. A seek elsewhere only wastes the prediction; results stay
+    exact."""
+
+    def __init__(self, build_fn, reuse: int):
+        self._build = build_fn
+        self._reuse = max(reuse, 1)
+        self._c = {}
+
+    def _for_root(self, root):
+        if not _same_root(self._c.get("root"), root):
+            self._c = {"root": root}
+        return self._c
+
+    def get(self, root, step: int):
+        c, reuse = self._for_root(root), self._reuse
+        epoch = int(step) // reuse
+        if c.get("epoch") != epoch:
+            if c.get("next_epoch") == epoch:
+                c["val"] = c.pop("next_val")
+                del c["next_epoch"]
+            else:
+                c["val"] = self._build(root, epoch * reuse)
+            c["epoch"] = epoch
+        return c["val"]
+
+    def prefetch_next(self, root, step: int):
+        c, reuse = self._for_root(root), self._reuse
+        epoch = int(step) // reuse
+        if int(step) % reuse == reuse - 1 and c.get("next_epoch") != epoch + 1:
+            c["next_val"] = self._build(root, (epoch + 1) * reuse)
+            c["next_epoch"] = epoch + 1
 
 
 def make_generate_fn(cfg: DataGenConfig, device=None):
     """``fn(root, step, atlas) -> batch`` with the slabs packed once per
-    atlas."""
+    atlas. In mode 9 the bank's warp planes are cached per (root, bank
+    epoch) (``cfg.warp_bank_reuse_steps`` steps) and the next epoch's are
+    built ahead (:class:`BankEpochCache`)."""
     check_slice(cfg)
     dev = resolve_device(device)
     slab_of = make_slab_packer(cfg, dev)
+    if cfg.mode_spec.warp_p == 0.0:
+        def fn(root, step, atlas):
+            return generate_batch(root, step, atlas, cfg,
+                                  slabs=slab_of(atlas), device=dev)
+
+        return fn
+
+    def build(root, step):
+        key = root.to(dev) if torch.is_tensor(root) else root_key(root, dev)
+        return warpgen.make_bank_and_aux(key, step, cfg)[1]
+
+    planes = BankEpochCache(build, cfg.warp_bank_reuse_steps)
 
     def fn(root, step, atlas):
-        return generate_batch(root, step, atlas, cfg, slabs=slab_of(atlas),
-                              device=dev)
+        aux = planes.get(root, int(step))
+        out = generate_batch(root, step, atlas, cfg, slabs=slab_of(atlas),
+                             device=dev, warp_aux=aux)
+        planes.prefetch_next(root, int(step))
+        return out
 
     return fn
 

@@ -140,6 +140,66 @@ def sample_key(root: torch.Tensor, sample_index) -> torch.Tensor:
     return torch.stack([o1, o2], dim=-1)
 
 
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)`` for one key (2,) and a Python int."""
+    return sample_key(key, int(data))
+
+
+def stream_key(key: torch.Tensor, stream: Stream, *indices) -> torch.Tensor:
+    """Key of one named stream, refined by per-object / per-component
+    indices: ``fold_in`` by the stream id, then by each index in turn."""
+    k = fold_in(key, int(stream))
+    for idx in indices:
+        k = fold_in(k, int(idx))
+    return k
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)``: key i is threefry(key, (0, i))
+    (the fold-like split of ``jax_threefry_partitionable=True``). Returns
+    (num, 2)."""
+    cnt = torch.arange(num, dtype=torch.int64, device=key.device)
+    o1, o2 = threefry2x32(key[0], key[1], torch.zeros_like(cnt), cnt)
+    return torch.stack([o1, o2], dim=-1)
+
+
+def _bits(key: torch.Tensor, shape) -> torch.Tensor:
+    n = int(np.prod(shape)) if shape else 1
+    return random_bits(key, n).reshape(tuple(shape))
+
+
+def uniform(key: torch.Tensor, a: float, b: float, shape=()) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, minval=a, maxval=b)`` in float32:
+    23 random bits as the mantissa of a float in [1, 2), minus 1, then
+    ``u * (b - a) + a``, held at ``a`` from below. XLA:CPU contracts that
+    scale-and-shift into one fused multiply-add (one rounding), so it is
+    computed here in float64 and rounded once: exact wherever the product
+    and ``a`` span under 53 bits, as for every range the port draws."""
+    lo = np.float32(a)
+    span = np.float32(np.float32(b) - lo)
+    mant = ((_bits(key, shape) >> 9) | 0x3F800000).to(torch.int32)
+    u = mant.view(torch.float32) - 1.0
+    v = (u.to(torch.float64) * float(span) + float(lo)).to(torch.float32)
+    return torch.clamp(v, min=float(lo))
+
+
+def uniform_int(key: torch.Tensor, a: int, b: int, shape=()) -> torch.Tensor:
+    """``jax.random.randint(key, shape, a, b + 1, int32)``, the closed range
+    [a, b]: two words per value from a split of ``key``, reduced modulo the
+    span with uint32 wrap-around, as JAX's ``_randint`` does."""
+    span = (b + 1) - a
+    if span <= 0:
+        span = 1
+    k1, k2 = split(key, 2)
+    hi = _bits(k1, shape)
+    lo = _bits(k2, shape)
+    mult = (2 ** 16) % span
+    mult = ((mult * mult) & _M32) % span
+    off = (((hi % span) * mult) & _M32) + (lo % span)
+    off = (off & _M32) % span
+    return (a + off).to(torch.int32)
+
+
 def random_bits(keys: torch.Tensor, n: int) -> torch.Tensor:
     """``jax.random.bits(key, (n,), uint32)`` for a batch of keys
     (..., 2): word i is the xor of threefry(key, (0, i)). int64 result."""

@@ -1,0 +1,198 @@
+"""Nonrigid deformation fields: the displacer population and the elementary
+field (port of ``flowgen/warpfields/fields.py``).
+
+A big field's elementary flow is the sum of support-weighted displacers
+(translation, rotation, zoom) on a hex grid; the bank integrates it 2^17-fold
+by binary doubling (``warpfields/compose.py``). Every expression here keeps
+the JAX package's order of operations and goes through ``ops/detmath``: the
+doublings amplify a 1-ulp difference into pixels, so the elementary field has
+to be bit-identical to the JAX package's.
+
+``elementary_field`` is batched over directions: one call evaluates every
+(field, flow / inverse flow) pair of a bank epoch, accumulating the
+displacers in the JAX ``fori_loop``'s order.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from .._fp import f32
+from ..ops.detmath import det_cos, det_div, det_exp, det_recip, det_sin
+from ..random.streams import split, uniform, uniform_int
+
+COMPOSE_ITERS = 17
+GRID_SPACING = 200
+TRANSLATION_SCALE = 3e-4
+ROTATION_SCALE = 2e-6  # x 2*pi
+ZOOM_SCALE = 2e-6
+SUPPORT_SIGMA = 50.0
+SUPPORT_SIGMA_JITTER = 20.0
+CENTER_JITTER = 10.0
+
+
+class DisplacerGrid(NamedTuple):
+    """Parameters of a hex grid of support-weighted displacers: (..., N)
+    leaves (a leading axis batches several grids)."""
+
+    kind: torch.Tensor       # int32: 0=translation, 1=rotation, 2=zoom
+    cx: torch.Tensor
+    cy: torch.Tensor
+    p0: torch.Tensor         # translation dx | angular speed | zoom factor
+    p1: torch.Tensor         # translation dy | unused
+    sup_cx: torch.Tensor
+    sup_cy: torch.Tensor
+    sup_sx: torch.Tensor
+    sup_sy: torch.Tensor
+    sup_angle: torch.Tensor
+
+
+def hex_grid_centers(size: int, spacing: int = GRID_SPACING, device="cpu"):
+    """Hex lattice covering a size x size field: (x, y) float32 of length
+    rows*cols."""
+    iso = int(spacing / 2.0 * (3.0**0.5))
+    rows = (size + iso - 1) // iso
+    cols = size // spacing
+    yidx, xidx = torch.meshgrid(torch.arange(rows, device=device),
+                                torch.arange(cols, device=device), indexing="ij")
+    x = xidx * spacing + torch.where(yidx % 2 == 1, spacing // 2, 0) + spacing // 2
+    y = yidx * iso + spacing // 2
+    return x.reshape(-1).to(torch.float32), y.reshape(-1).to(torch.float32)
+
+
+def sample_displacer_grid(key: torch.Tensor, size: int) -> DisplacerGrid:
+    """Random displacer population of one big field, keyed like the JAX
+    package's (``jax.random.split`` / ``uniform`` / ``randint``)."""
+    gx, gy = hex_grid_centers(size, device=key.device)
+    n = gx.shape[0]
+    ks = split(key, 8)
+    kind = uniform_int(ks[0], 0, 2, (n,))
+
+    def u(k):
+        return uniform(k, -1.0, 1.0, (n,))
+
+    p_a = u(ks[1])
+    p_b = u(ks[2])
+    cx = gx + u(ks[3]) * CENTER_JITTER
+    cy = gy + u(ks[4]) * CENTER_JITTER
+    p0 = torch.where(
+        kind == 0,
+        p_a * TRANSLATION_SCALE,
+        torch.where(kind == 1, p_a * math.pi * 2.0 * ROTATION_SCALE,
+                    1.0 + p_a * ZOOM_SCALE),
+    )
+    p1 = p_b * TRANSLATION_SCALE
+    sup = split(ks[5], 5)
+    return DisplacerGrid(
+        kind=kind, cx=cx, cy=cy, p0=p0, p1=p1,
+        sup_cx=gx + u(sup[0]) * CENTER_JITTER,
+        sup_cy=gy + u(sup[1]) * CENTER_JITTER,
+        sup_sx=SUPPORT_SIGMA + u(sup[2]) * SUPPORT_SIGMA_JITTER,
+        sup_sy=SUPPORT_SIGMA + u(sup[3]) * SUPPORT_SIGMA_JITTER,
+        sup_angle=u(sup[4]) * math.pi,
+    )
+
+
+def gaussian2d_support(x, y, cx, cy, sigma_x, sigma_y, angle):
+    """Anisotropic rotated Gaussian, peak-normalised (the reference's
+    Supports::Gaussian2D), in detmath arithmetic."""
+    a, b = det_cos(angle), -det_sin(angle)
+    rx = a * (x - cx) + b * (y - cy)
+    ry = (-b * (x - cx) + a * (y - cy)) * det_div(sigma_x, sigma_y)
+    r2 = rx * rx + ry * ry
+    return det_exp(-r2 * det_recip(2.0 * sigma_x * sigma_x))
+
+
+def _displacer_term(grid: DisplacerGrid, i: int, px, py, inverse):
+    """Support-weighted flow of displacer ``i`` over the pixel grid, for
+    every direction at once: grid leaves are (M, N), ``inverse`` (M,) bool;
+    returns two (M, S, S) planes."""
+    def at(v):
+        return v[:, i].reshape(-1, 1, 1)
+
+    kind = at(grid.kind)
+    inv = inverse.reshape(-1, 1, 1)
+    p0 = at(grid.p0)
+    dx = px - at(grid.cx)
+    dy = py - at(grid.cy)
+    om = torch.where(inv, p0, -p0)
+    c, s = det_cos(om), det_sin(om)
+    rot_fx = (c * dx - s * dy) - dx
+    rot_fy = (s * dx + c * dy) - dy
+    f = torch.where(inv, det_recip(p0), p0)
+    zoom_fx = (f - 1.0) * dx
+    zoom_fy = (f - 1.0) * dy
+    sgn = torch.where(inv, -1.0, 1.0)
+    fx = torch.where(kind == 0, sgn * p0,
+                     torch.where(kind == 1, rot_fx, zoom_fx))
+    fy = torch.where(kind == 0, sgn * at(grid.p1),
+                     torch.where(kind == 1, rot_fy, zoom_fy))
+    w = gaussian2d_support(px, py, at(grid.sup_cx), at(grid.sup_cy),
+                           at(grid.sup_sx), at(grid.sup_sy), at(grid.sup_angle))
+    return fx * w, fy * w
+
+
+def stack_grids(grids, inverse_flags):
+    """One (M, N) grid from per-direction grids, with their (M,) inverse
+    flags."""
+    g = DisplacerGrid(*(torch.stack(v) for v in zip(*grids)))
+    dev = g.kind.device
+    return g, torch.tensor(list(inverse_flags), dtype=torch.bool, device=dev)
+
+
+def elementary_field(grid: DisplacerGrid, size: int, inverse,
+                     stride: float = 1.0):
+    """Dense sum of every displacer's contribution over a size x size
+    lattice with coordinates ``i * stride``, for M directions at once
+    (``grid`` leaves (M, N), ``inverse`` (M,) bool). The displacers are
+    added in index order, as the JAX package's ``fori_loop`` adds them.
+    Returns (M, 2, size, size): planes x, y."""
+    dev = grid.kind.device
+    ys = torch.arange(size, dtype=torch.float32, device=dev) * stride
+    py, px = torch.meshgrid(ys, ys, indexing="ij")
+    M, n = grid.kind.shape
+    fx = torch.zeros((M, size, size), dtype=torch.float32, device=dev)
+    fy = torch.zeros_like(fx)
+    for i in range(n):
+        tx, ty = _displacer_term(grid, i, px, py, inverse)
+        fx = fx + tx
+        fy = fy + ty
+    return torch.stack([fx, fy], dim=1)
+
+
+def clamp_near_zeros(field, threshold: float = 1e-3):
+    """Zero out sub-threshold flows (FlowField::clamp_near_zeros)."""
+    return torch.where(torch.abs(field) < f32(threshold),
+                       torch.zeros_like(field), field)
+
+
+def _upsample2(field):
+    """Bilinear x2 upsample of (..., h, w) planes onto the full lattice
+    (interleaved values and edge midpoints), as the JAX package's
+    ``_upsample2`` on each channel."""
+    h, w = field.shape[-2], field.shape[-1]
+    nxt = torch.cat([field[..., 1:, :], field[..., -1:, :]], dim=-2)
+    rows = torch.stack([field, (field + nxt) * 0.5], dim=-2).reshape(
+        *field.shape[:-2], 2 * h, w)
+    nxtc = torch.cat([rows[..., 1:], rows[..., -1:]], dim=-1)
+    return torch.stack([rows, (rows + nxtc) * 0.5], dim=-1).reshape(
+        *field.shape[:-2], 2 * h, 2 * w)
+
+
+def self_compose(field, iters: int = COMPOSE_ITERS):
+    """The ``warp_bank_impl="xla"`` content stream (quad-gather doublings)."""
+    raise NotImplementedError(
+        "warp_bank_impl='xla' (fields.self_compose) is not ported yet "
+        "(ROADMAP.md, port queue item 4)"
+    )
+
+
+def make_big_field(key, size: int, coarse_iters: int = 16):
+    """The ``warp_bank_impl="xla"`` big field (``fields.make_big_field``)."""
+    raise NotImplementedError(
+        "warp_bank_impl='xla' (fields.make_big_field) is not ported yet "
+        "(ROADMAP.md, port queue item 4)"
+    )

@@ -1,0 +1,158 @@
+"""Warp-crop bank and the scene kernel's warp planes for mode 9 (port of
+``flowgen/warpfields/generator.py``).
+
+Each bank epoch (``step // warp_bank_reuse_steps``) derives
+``warp_fields_per_batch`` composed big fields from ``(seed, epoch)``, tiles
+them into crops (the bank), and solves the separable warp's column inverse
+once per big field (``make_bank_and_aux``, the hot-path producer). Objects
+and backgrounds index the crops through their sampled warp slots.
+
+Only the default ``warp_bank_impl="pallas"`` content stream is ported; its
+composition runs through ``warpfields/compose.py`` (CUDA kernels on the
+card, their plain versions on the CPU, the same bits on both).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..compose.render import WarpAux, WarpBank
+from ..config import DataGenConfig
+from ..ops.scene import BG_EY, bg_band_starts
+from ..random.streams import Stream, fold_in, stream_key
+from . import compose
+from .fields import sample_displacer_grid, stack_grids
+
+# Finite stand-in for the reference's NaN flow at flagged bank pixels under
+# ``warp_oob="nan"``: it rides through the kernels' linear resampling and is
+# decoded back to NaN at output adaptation (pipeline/generator._adapt_output).
+OOB_SENTINEL = 4.0e18
+OOB_FLOW_THRESH = 1.0e9
+
+
+def _xla_not_ported():
+    return NotImplementedError(
+        "warp_bank_impl='xla' (fields.self_compose, fields.make_big_field, "
+        "generator._gdisp_xla) is not ported yet (ROADMAP.md, port queue "
+        "item 4)"
+    )
+
+
+def apply_oob_policy(bank: WarpBank, policy: str) -> WarpBank:
+    """``warp_oob``: "zero" passes through; "nan" replaces flagged
+    forward-flow pixels with OOB_SENTINEL. The inverse field is kept."""
+    if policy == "nan":
+        return bank._replace(flow=torch.where(
+            torch.isnan(bank.flow), torch.full_like(bank.flow, OOB_SENTINEL),
+            bank.flow))
+    return bank
+
+
+def big_field_size(width: int, height: int) -> int:
+    return 3 * max(width, height)
+
+
+def crop_origins(width: int, height: int):
+    """Static crop tiling of the big field: stride (W/3, H/3), margins
+    W/4 .. big - 5W/4."""
+    big = big_field_size(width, height)
+    xs = list(range(width // 4, big - 5 * width // 4, width // 3))
+    ys = list(range(height // 4, big - 5 * height // 4, height // 3))
+    return [(x, y) for y in ys for x in xs]
+
+
+def n_crops_per_field(width: int, height: int) -> int:
+    return len(crop_origins(width, height))
+
+
+def bank_size(cfg: DataGenConfig) -> int:
+    return n_crops_per_field(cfg.width, cfg.height) * cfg.warp_fields_per_batch
+
+
+def _big_fields(root, step, cfg: DataGenConfig):
+    """The epoch's composed big fields and their inverses: (flows, iflows),
+    each (F, 2, big, big) planes x, y with NaN at flagged pixels. All 2F
+    directions compose together through shared kernel launches."""
+    big = big_field_size(cfg.width, cfg.height)
+    epoch_key = fold_in(root, int(step) // max(cfg.warp_bank_reuse_steps, 1))
+    grids, flags = [], []
+    for i in range(cfg.warp_fields_per_batch):
+        g = sample_displacer_grid(
+            stream_key(epoch_key, Stream.WARP_FIELD, i), big)
+        grids += [g, g]
+        flags += [False, True]
+    grid, inverse = stack_grids(grids, flags)
+    out = compose.make_big_fields(grid, inverse, big)
+    return out[0::2], out[1::2]
+
+
+def _crops(planes, cfg: DataGenConfig):
+    """(F, C, big, big) -> (F * n_crops, C, H, W), field-major."""
+    H, W = cfg.height, cfg.width
+    return torch.cat([
+        torch.stack([f[:, y : y + H, x : x + W] for (x, y) in
+                     crop_origins(W, H)])
+        for f in planes
+    ])
+
+
+def _crop_bank(flows, iflows, cfg: DataGenConfig) -> WarpBank:
+    bank = WarpBank(
+        flow=_crops(flows, cfg).permute(0, 2, 3, 1).contiguous(),
+        iflow=_crops(iflows, cfg).permute(0, 2, 3, 1).contiguous(),
+    )
+    return apply_oob_policy(bank, cfg.warp_oob)
+
+
+def _half_offset_expand(p, axis: int, c0: int, n_pairs: int):
+    """Clamped linear sampling of ``p`` along ``axis`` at the x2 lattice
+    ``c0 + j/2 + 0.75``, j = 0..2*n_pairs-1 (fractions 0.75 / 0.25
+    alternate): edge-clamped slices and lerps, no gathers."""
+    n = p.shape[axis]
+    idx = torch.clamp(torch.arange(c0, c0 + n_pairs + 2, device=p.device),
+                      0, n - 1)
+    q = p.index_select(axis, idx)
+    a, b, c = (q.narrow(axis, s, n_pairs) for s in (0, 1, 2))
+    even = 0.25 * a + 0.75 * b
+    odd = 0.75 * b + 0.25 * c
+    out = torch.stack([even, odd], dim=axis + 1)
+    shape = list(p.shape)
+    shape[axis] = 2 * n_pairs
+    return out.reshape(shape)
+
+
+def make_bank_and_aux(root, step, cfg: DataGenConfig):
+    """Bank and scene-kernel warp planes from shared big fields, the
+    hot-path producer: one column-inverse solve per big field replaces the
+    per-crop solves (a crop's column is a sub-segment of its field's, and
+    the solve commutes with the background's x2 zoom). Returns ``(bank,
+    WarpAux(obj, bg, bg_band))``: obj (N, 4, H, W) = [gdisp, iflow_y,
+    flow_x, flow_y]; bg (N, 2, H + 2*BG_EY, W) = [gdisp, iflow_y] of the
+    x2-upscaled background field; bg_band the background warp's pass-1
+    bands of those planes (``ops/scene.py:bg_band_starts``)."""
+    if cfg.warp_bank_impl != "pallas":
+        raise _xla_not_ported()
+    W, H = cfg.width, cfg.height
+    origins = crop_origins(W, H)
+    flows, iflows = _big_fields(root, step, cfg)
+    bank = _crop_bank(flows, iflows, cfg)
+
+    big_i = torch.nan_to_num(iflows)
+    if cfg.warp_oob == "nan":
+        flows = torch.where(torch.isnan(flows),
+                            torch.full_like(flows, OOB_SENTINEL), flows)
+    big_f = torch.nan_to_num(flows)
+    gd_big = compose.coarse_gdisp_batch(big_i.permute(0, 2, 3, 1))  # (F, S, S)
+    big4 = torch.stack([gd_big, big_i[:, 1], big_f[:, 0], big_f[:, 1]], dim=1)
+    obj_aux = _crops(big4, cfg)                             # (N, 4, H, W)
+
+    big2 = torch.stack([gd_big, big_i[:, 1]], dim=1)        # (F, 2, S, S)
+    n_pairs_r = (H + 2 * BG_EY) // 2
+    per_origin = []
+    for (x, y) in origins:
+        r = _half_offset_expand(big2, 2, y + H // 4 - BG_EY // 2 - 1, n_pairs_r)
+        per_origin.append(
+            2.0 * _half_offset_expand(r, 3, x + W // 4 - 1, W // 2))
+    bg_aux = torch.stack(per_origin, dim=1).reshape(
+        -1, 2, H + 2 * BG_EY, W).contiguous()
+    return bank, WarpAux(obj_aux.contiguous(), bg_aux, bg_band_starts(bg_aux))

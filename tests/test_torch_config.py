@@ -115,7 +115,7 @@ def test_generator_without_device_raises_without_card():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(mode=9),
+    dict(mode=9, warp_bank_impl="xla"),
     dict(mode=11),
     dict(mode=13),
     dict(mode=7, compute_inverse_flow=True),

@@ -1,4 +1,4 @@
-"""The port's CUDA scene kernel against its plain PyTorch version, on the
+"""The port's CUDA kernels against their plain PyTorch versions, on the
 card. Every test is marked ``gpu`` and skips where no CUDA device exists;
 whether one exists is decided inside each test. This file imports neither
 JAX nor the JAX package, so it also runs on a machine without them:
@@ -23,7 +23,7 @@ pytestmark = pytest.mark.gpu
 
 def _need_card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the scene kernel has no CPU mode)")
+        pytest.skip("needs a CUDA device (the CUDA kernels have no CPU mode)")
 
 
 def _tables(cfg, seed, dev):
@@ -64,3 +64,84 @@ def test_generate_batch_cuda_matches_cpu():
         assert (g[k].cpu() - c[k]).abs().ge(1).float().mean().item() < 0.01
     d = (g["flow0"].cpu() - c["flow0"]).abs()
     assert d.flatten().median().item() < 1e-4
+
+
+def _smooth_fields(m, s, mag, dev):
+    """(m, 2, s, s) smooth displacement fields with |f| <= ~mag px: real
+    elementary fields of a 2s lattice on its half lattice, rescaled."""
+    from flowgen_torch.random.streams import Stream, stream_key
+    from flowgen_torch.warpfields import fields
+
+    grids, flags = [], []
+    for i in range(m):
+        grids.append(fields.sample_displacer_grid(
+            stream_key(root_key(5, dev), Stream.WARP_FIELD, i), 2 * s))
+        flags.append(bool(i % 2))
+    g, inv = fields.stack_grids(grids, flags)
+    f = fields.elementary_field(g, s, inv, stride=2.0)
+    return f * (mag / f.abs().amax(dim=(1, 2, 3), keepdim=True))
+
+
+@pytest.mark.parametrize("s", [192, 384])
+def test_fields_kernels_match_plain(s):
+    from flowgen_torch.warpfields import compose
+
+    _need_card()
+    dev = torch.device("cuda")
+    f = _smooth_fields(4, s, 12.0, dev)
+    c0, h0 = compose.coarse_solve.launches, compose.hwarp_rows.launches
+    gd = compose.coarse_gdisp_batch(f.permute(0, 2, 3, 1))
+    out = compose.displace_planes_batch(f, gd, f[:, 1])
+    torch.cuda.synchronize()
+    assert compose.coarse_solve.launches == c0 + 1
+    assert compose.hwarp_rows.launches == h0 + 2
+    fc = f.cpu()
+    gd_p = compose.coarse_gdisp_batch(fc.permute(0, 2, 3, 1))
+    out_p = compose.displace_planes_batch(fc, gd_p, fc[:, 1])
+    assert torch.equal(gd.cpu(), gd_p)
+    assert torch.equal(out.cpu(), out_p)
+
+
+def test_bank_cuda_matches_plain():
+    from flowgen_torch.warpfields.generator import make_bank_and_aux
+
+    _need_card()
+    cfg = flowgen_torch.DataGenConfig(mode=9, batch_size=2, width=128, height=96)
+    g_bank, g_aux = make_bank_and_aux(root_key(0, "cuda"), 0, cfg)
+    c_bank, c_aux = make_bank_and_aux(root_key(0), 0, cfg)
+    for a, b in zip(tuple(g_bank) + tuple(g_aux), tuple(c_bank) + tuple(c_aux)):
+        assert torch.equal(a.cpu(), b)
+
+
+def _mode9_tables(cfg, dev):
+    """Scene-kernel inputs of a mode-9 batch holding deforming objects and a
+    deforming background (the first such seed)."""
+    from flowgen_torch.warpfields.generator import bank_size, make_bank_and_aux
+
+    atlas = flowgen_torch.procedural_atlas(4, height=cfg.height, width=cfg.width)
+    obj, bg, src = make_slab_packer(cfg, dev)(atlas)
+    for seed in range(64):
+        scenes = sample_scene_batch(
+            root_key(seed, dev), torch.arange(cfg.batch_size, device=dev), cfg,
+            n_warp_slots=bank_size(cfg))
+        if (int((scenes.objects.warp & scenes.objects.valid).sum()) >= 1
+                and int(scenes.background.warp.sum()) >= 1):
+            break
+    else:
+        raise AssertionError("no seed with a deforming object and background")
+    _, aux = make_bank_and_aux(root_key(0, dev), 0, cfg)
+    args, key, _ = fused.scene_tables(scenes, cfg, obj, bg, src, aux)
+    return args, key
+
+
+@pytest.mark.parametrize("width,height,batch", [(128, 96, 2), (512, 384, 1)])
+def test_mode9_scene_kernel_matches_plain(width, height, batch):
+    _need_card()
+    cfg = flowgen_torch.DataGenConfig(mode=9, batch_size=batch, width=width,
+                                      height=height)
+    args, key = _mode9_tables(cfg, torch.device("cuda"))
+    kf, kl = ps.scene_render(*args, spec_key=key)
+    torch.cuda.synchronize()
+    pf, pl = ps.scene_render_plain(*args, spec_key=key)
+    assert torch.equal(kf, pf)
+    assert torch.equal(kl, pl)
