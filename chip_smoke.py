@@ -37,8 +37,19 @@ Phases (any failure exits non-zero before the final line):
      B=64, coarse_gdisp's solve and hwarp_rows at 768^2 and 1536^2, and
      coarse_gdisp_batch as a whole beside the solve): CUDA events, the plain
      versions once, the bound, and for hwarp_rows the time of
-     torch.nn.functional.grid_sample on the same planes; then one JSON line
-     {"kernels": [...]}, and last the line {"ok": true, "device": {...}}.
+     torch.nn.functional.grid_sample on the same planes;
+  9. modes 13 and 11 (quadrant slabs, 2x2 texture sub-windows) with inverse
+     flow and id images, scene kernel vs plain at 512x384, B=4 (phase 6
+     does the same for mode 9's warp branch): frames, all four flow planes
+     and the id images, held to the gates above (ids: under 1e-4
+     mismatched; max difference 0 expected);
+ 10. the mode-13 main path: Generator(DataGenConfig(mode=13, batch_size=64,
+     seed=0, compute_inverse_flow=True, emit_masks=True)), the same checks
+     and numbers as phase 3 (flow1 and the masks included; samples 0-3 of
+     step 0 against the plain render of phase 9, masks from its ids), with
+     the masks on their own layer line;
+ 11. mode 13, the scene kernel's timing at B=64 as in phase 4; then one JSON
+     line {"kernels": [...]}, and last the line {"ok": true, "device": {...}}.
 
 It needs the repository (it imports flowgen_torch from its own directory),
 a CUDA card and nvcc. It imports nothing of JAX or of the JAX package.
@@ -118,8 +129,8 @@ def sample(cfg, seed: int, indices, device, n_slots=1):
 
 
 def scene_tables(cfg, seed: int, step: int, slabs, device):
-    """The scene kernel's inputs for one mode-7 batch of the main path:
-    (args, spec_key, use_aa) from ``fused.scene_tables``."""
+    """The scene kernel's inputs for one batch of the main path: (args,
+    options) from ``fused.scene_tables``."""
     from flowgen_torch.compose import fused
 
     idx = step * cfg.batch_size + torch.arange(cfg.batch_size)
@@ -131,7 +142,7 @@ def layer_breakdown(cfg, slabs, device, steps: int = 3):
     precompute, scene kernel, output adapter), each ended by a device
     synchronize, averaged over ``steps`` steps. Mode 9 adds the bank
     producer: each epoch's make_bank_and_aux, per step (divided by the
-    steps of an epoch)."""
+    steps of an epoch); ``emit_masks`` the masks from the id images."""
     from flowgen_torch.compose import fused
     from flowgen_torch.ops import scene as ps
     from flowgen_torch.pipeline.generator import _adapt_output
@@ -142,6 +153,8 @@ def layer_breakdown(cfg, slabs, device, steps: int = 3):
     acc = {"bank_producer": 0.0} if warp else {}
     acc.update({"sampler": 0.0, "precompute": 0.0, "scene_kernel": 0.0,
                 "adapt": 0.0})
+    if cfg.emit_masks:
+        acc["masks"] = 0.0
     root = root_key(cfg.seed, device)
     n_slots = wg.bank_size(cfg) if warp else 1
     reuse = max(cfg.warp_bank_reuse_steps, 1)
@@ -162,14 +175,21 @@ def layer_breakdown(cfg, slabs, device, steps: int = 3):
         scenes = sample(cfg, cfg.seed, idx, device, n_slots)
         acc["sampler"] += tick(t0)
         t0 = time.perf_counter()
-        args, key, use_aa = fused.scene_tables(scenes, cfg, *slabs, aux)
+        args, opts = fused.scene_tables(scenes, cfg, *slabs, aux)
         acc["precompute"] += tick(t0)
         t0 = time.perf_counter()
-        frames, flow = ps.scene_render(*args, spec_key=key, use_aa=use_aa)
+        frames, flow, ids = ps.scene_render(*args, **opts)
         acc["scene_kernel"] += tick(t0)
+        masks = None
+        if cfg.emit_masks:
+            t0 = time.perf_counter()
+            masks = fused.masks_from_ids(ids, flow[:, 0], flow[:, 1])
+            acc["masks"] += tick(t0)
         t0 = time.perf_counter()
         im = [unpack(frames[:, f]) for f in (0, 1)]
-        _adapt_output(im[0], im[1], flow.permute(0, 2, 3, 1), None, cfg)
+        f1 = flow[:, 2:4].permute(0, 2, 3, 1) if flow.shape[1] == 4 else None
+        _adapt_output(im[0], im[1], flow[:, 0:2].permute(0, 2, 3, 1), f1, cfg,
+                      masks)
         acc["adapt"] += tick(t0)
     return {k: 1e3 * v / steps for k, v in acc.items()}
 
@@ -204,30 +224,52 @@ def unpack(frames):
     )
 
 
-def as_batch(frames, flow):
-    """Scene-kernel output (frames (B,2,H,W) packed, flow (B,2,H,W)) as the
-    main path's (image0, image1, flow0) in NHWC."""
-    return unpack(frames[:, 0]), unpack(frames[:, 1]), flow.permute(0, 2, 3, 1)
+def as_batch(out):
+    """Scene-kernel output (frames (B,2,H,W) packed, flow (B,2|4,H,W), ids
+    (B,2,H,W) or None) as a dict of the main path's NHWC outputs (image0,
+    image1, flow0, flow1 with the inverse planes), plus ``ids`` and, with
+    them, the occlusion and motion-boundary masks."""
+    from flowgen_torch.compose.fused import masks_from_ids
+
+    frames, flow, ids = out
+    d = {"image0": unpack(frames[:, 0]), "image1": unpack(frames[:, 1]),
+         "flow0": flow[:, 0:2].permute(0, 2, 3, 1)}
+    if flow.shape[1] == 4:
+        d["flow1"] = flow[:, 2:4].permute(0, 2, 3, 1)
+    if ids is not None:
+        d["ids"] = ids
+        d["occlusion"], d["motion_boundary"] = masks_from_ids(
+            ids, flow[:, 0], flow[:, 1])
+    return d
 
 
 def gates(a, b):
-    """The JAX package's on-device gates between two (image0, image1, flow0)
-    triples."""
-    dimg = [(a[i] - b[i]).abs() for i in (0, 1)]
+    """The JAX package's on-device gates between two output dicts: images
+    under 1% of values >= 1 level apart and under 1e-4 >= 2 levels; over
+    every flow both hold, median |d| < 1e-4 px and under 1e-3 of values
+    > 0.01 px; ids and masks both hold under 1e-4 of pixels mismatched."""
+    dimg = [(a[k] - b[k]).abs() for k in ("image0", "image1")]
     img1 = max(float((d >= 1).float().mean()) for d in dimg)
     img2 = max(float((d >= 2).float().mean()) for d in dimg)
-    dflow = (a[2] - b[2]).abs()
+    flows = [k for k in ("flow0", "flow1") if k in a and k in b]
+    dflow = torch.cat([(a[k] - b[k]).abs().flatten() for k in flows])
     res = {
         "img_frac_ge_1": img1,
         "img_frac_ge_2": img2,
         "max_img_diff": max(float(d.max()) for d in dimg),
-        "flow_median": float(dflow.flatten().median()),
+        "flows": flows,
+        "flow_median": float(dflow.median()),
         "flow_frac_gt_0.01": float((dflow > 0.01).float().mean()),
         "flow_max": float(dflow.max()),
     }
     res["max_abs_err"] = max(res["max_img_diff"], res["flow_max"])
-    res["ok"] = (img1 < 0.01 and img2 < 1e-4 and res["flow_median"] < 1e-4
-                 and res["flow_frac_gt_0.01"] < 1e-3)
+    ok = (img1 < 0.01 and img2 < 1e-4 and res["flow_median"] < 1e-4
+          and res["flow_frac_gt_0.01"] < 1e-3)
+    for k in ("ids", "occlusion", "motion_boundary"):
+        if k in a and k in b:
+            res[f"{k}_mismatch"] = float((a[k] != b[k]).float().mean())
+            ok = ok and res[f"{k}_mismatch"] < 1e-4
+    res["ok"] = ok
     return res
 
 
@@ -249,11 +291,12 @@ def field_gate(a, b):
     return res
 
 
-def bound(args, key, use_aa):
+def bound(args, opts):
     """Least time for the scene kernel's work on these inputs: the larger of
     a bytes time and a float-operations time.
 
-    Bytes: both packed frames and both flow planes written once, plus the
+    Bytes: both packed frames and both flow planes written once (with
+    inverse flow its two planes too, with id images both of them), plus the
     slab texels the output depends on, read once. Per pixel of each frame,
     walking the work units against painter's order, a unit's texels count
     where its blend mask (the plain version's coverage, inside the unit's
@@ -272,6 +315,7 @@ def bound(args, key, use_aa):
     row-block culls, once per owned pixel."""
     from flowgen_torch.ops import scene as ps
 
+    key, use_aa = opts["spec_key"], opts["use_aa"]
     (bg_meta, omi, omf, tmi, tmf, bgm, edges, _, _, wl, nu) = args[:11]
     warp = args[11] is not None
     band_bytes = 4.0 * args[13][0].numel() if warp else 0.0
@@ -283,7 +327,9 @@ def bound(args, key, use_aa):
     B, K = omi.shape[:2]
     wh, ww = min(ps.WIN_H, H), min(ps.WIN_W, W)
     nb = wh // 8
-    out_bytes = B * 2 * H * W * 4 + B * 2 * H * W * 4
+    nflow = 4 if opts["inverse_flow"] else 2
+    n_ids = 2 if opts["emit_masks"] else 0
+    out_bytes = B * (2 + nflow + n_ids) * H * W * 4
     tex = torch.zeros((), dtype=torch.float64, device=dev)
     aux = torch.zeros((), dtype=torch.float64, device=dev)
     ops = 0.0
@@ -408,16 +454,31 @@ def run_main_path(cfg, atlas, card, n_steps=5, prof_steps=3):
         "cuda_kernels": n_cuda / prof_steps,
     }
     B, H, W = cfg.batch_size, cfg.height, cfg.width
-    im0, im1, fl = out["image0"], out["image1"], out["flow0"]
-    for im in (im0, im1):
+    want = {"image0", "image1", "flow0"}
+    if cfg.compute_inverse_flow:
+        want.add("flow1")
+    if cfg.emit_masks:
+        want |= {"occlusion", "motion_boundary"}
+    if set(out) != want:
+        fail(f"output keys {sorted(out)}, want {sorted(want)}")
+    for k in ("image0", "image1"):
+        im = out[k]
         if tuple(im.shape) != (B, H, W, 3):
             fail(f"image shape {tuple(im.shape)}")
         if not bool(((im == im.round()) & (im >= 0) & (im <= 255)).all()):
             fail("images are not integer values in [0, 255]")
-    if tuple(fl.shape) != (B, H, W, 2):
-        fail(f"flow shape {tuple(fl.shape)}")
-    if not bool(torch.isfinite(fl).all()):
-        fail("flow has non-finite values")
+    for k in want & {"flow0", "flow1"}:
+        if tuple(out[k].shape) != (B, H, W, 2):
+            fail(f"{k} shape {tuple(out[k].shape)}")
+        if not bool(torch.isfinite(out[k]).all()):
+            fail(f"{k} has non-finite values")
+    for k in want & {"occlusion", "motion_boundary"}:
+        if tuple(out[k].shape) != (B, H, W) or out[k].dtype != torch.bool:
+            fail(f"{k}: shape {tuple(out[k].shape)}, {out[k].dtype}")
+        share = float(out[k].float().mean())
+        print(f"{k} share (mode {cfg.mode}, last step): {share:.4f}")
+        if not 0.0 < share < 1.0:
+            fail(f"{k} is constant")
     if counts["scene_render"] != dispatched:
         fail(f"scene kernel launches {counts['scene_render']} != steps "
              f"dispatched {dispatched}")
@@ -447,13 +508,12 @@ def phase_mode7(card, dev):
     slabs = make_slab_packer(cfg4, dev)(atlas)
 
     # ---- 2: kernel vs plain at 512x384, B=4 ----
-    args, key, use_aa = scene_tables(cfg4, 0, 0, slabs, dev)
+    args, opts = scene_tables(cfg4, 0, 0, slabs, dev)
     for label, bg_only in (("background", True), ("scene", False)):
-        k_out = as_batch(*ps.scene_render(*args, spec_key=key, use_aa=use_aa,
-                                          bg_only=bg_only))
+        k_out = as_batch(ps.scene_render(*args, bg_only=bg_only, **opts))
         torch.cuda.synchronize()
-        plain4 = as_batch(*ps.scene_render_plain(*args, spec_key=key,
-                                                 use_aa=use_aa, bg_only=bg_only))
+        plain4 = as_batch(ps.scene_render_plain(*args, bg_only=bg_only,
+                                                **opts))
         cmp = gates(k_out, plain4)
         print(f"mode 7 kernel vs plain ({label}, B=4, 512x384): "
               + json.dumps(cmp, sort_keys=True))
@@ -465,7 +525,7 @@ def phase_mode7(card, dev):
     first, res = run_main_path(cfg, atlas, card)
     # Step 0 holds samples 0..3 of phase 2: content depends only on (seed,
     # global sample index).
-    g = gates(tuple(first[k][:4] for k in ("image0", "image1", "flow0")), plain4)
+    g = gates({k: v[:4] for k, v in first.items()}, plain4)
     print("mode 7 main path step 0 vs plain (samples 0-3): "
           + json.dumps(g, sort_keys=True))
     if not g["ok"]:
@@ -479,13 +539,12 @@ def phase_mode7(card, dev):
           + f" [{card}]")
 
     # ---- 4: scene kernel timing at B=64 ----
-    args, key, use_aa = scene_tables(cfg, 0, 0, slabs, dev)
-    k_ms = event_ms(lambda: ps.scene_render(*args, spec_key=key, use_aa=use_aa))
-    k_out = ps.scene_render(*args, spec_key=key, use_aa=use_aa)
-    p_ms, p_out = host_ms(
-        lambda: ps.scene_render_plain(*args, spec_key=key, use_aa=use_aa))
-    g = gates(as_batch(*k_out), as_batch(*p_out))
-    bd = bound(args, key, use_aa)
+    args, opts = scene_tables(cfg, 0, 0, slabs, dev)
+    k_ms = event_ms(lambda: ps.scene_render(*args, **opts))
+    k_out = ps.scene_render(*args, **opts)
+    p_ms, p_out = host_ms(lambda: ps.scene_render_plain(*args, **opts))
+    g = gates(as_batch(k_out), as_batch(p_out))
+    bd = bound(args, opts)
     print(f"mode 7 scene kernel (B=64): {k_ms:.3f} ms per launch (CUDA events, "
           f"10 launches); plain version {p_ms:.1f} ms; bound "
           f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} "
@@ -569,7 +628,10 @@ def phase_bank(cfg, dev):
 
 def phase_mode9_scene(cfg, atlas, aux, card, dev):
     """Phase 6: the scene kernel vs its plain version at B=4 on samples of
-    the main path's step 0 that hold a deforming object and background."""
+    the main path's step 0 that hold a deforming object and background, as
+    the main path renders them and again with inverse flow and id images.
+    Returns the first sample, the plain render, the worst comparison and
+    the slabs."""
     import dataclasses
 
     from flowgen_torch.compose import fused
@@ -588,18 +650,25 @@ def phase_mode9_scene(cfg, atlas, aux, card, dev):
             break
     else:
         fail("no 4 samples of step 0 hold a deforming object and background")
-    args, key, use_aa = fused.scene_tables(scenes, cfg4, *slabs, aux)
-    k_out = as_batch(*ps.scene_render(*args, spec_key=key, use_aa=use_aa))
-    torch.cuda.synchronize()
-    p_out = as_batch(*ps.scene_render_plain(*args, spec_key=key, use_aa=use_aa))
-    cmp = gates(k_out, p_out)
-    print(f"mode 9 kernel vs plain (samples {4 * s}-{4 * s + 3}, "
-          f"{cfg.width}x{cfg.height}, "
-          f"{n_obj} deforming objects, {n_bg} deforming backgrounds): "
-          + json.dumps(cmp, sort_keys=True))
-    if not cmp["ok"]:
-        fail("mode 9 kernel vs plain gates failed")
-    return 4 * s, p_out, cmp, slabs
+    args, opts = fused.scene_tables(scenes, cfg4, *slabs, aux)
+    worst = 0.0
+    for label, extra in (("", {}), (", inverse flow and ids", dict(
+            inverse_flow=True, emit_masks=True))):
+        o = {**opts, **extra}
+        k_out = as_batch(ps.scene_render(*args, **o))
+        torch.cuda.synchronize()
+        p_out = as_batch(ps.scene_render_plain(*args, **o))
+        cmp = gates(k_out, p_out)
+        print(f"mode 9 kernel vs plain{label} (samples {4 * s}-{4 * s + 3}, "
+              f"{cfg.width}x{cfg.height}, "
+              f"{n_obj} deforming objects, {n_bg} deforming backgrounds): "
+              + json.dumps(cmp, sort_keys=True))
+        if not cmp["ok"]:
+            fail(f"mode 9 kernel vs plain gates failed{label}")
+        worst = max(worst, cmp["max_abs_err"])
+        if not extra:
+            plain = p_out
+    return 4 * s, plain, worst, slabs
 
 
 def grid_sample_ms(planes, disp):
@@ -678,6 +747,88 @@ def phase_bank_timing(fields_by_size, card):
     return rows
 
 
+def phase_quadrant(card, dev):
+    """Phase 9: modes 13 and 11 with inverse flow and id images, the scene
+    kernel vs its plain version at 512x384, B=4 (samples 0-3 of seed 0).
+    Returns mode 13's plain render, the worst comparison and its slabs
+    (the packer's triple, which the B=64 main path shares)."""
+    import flowgen_torch
+    from flowgen_torch.ops import scene as ps
+    from flowgen_torch.pipeline.generator import make_slab_packer
+
+    worst, keep = 0.0, None
+    for mode in (13, 11):
+        cfg4 = flowgen_torch.DataGenConfig(
+            mode=mode, batch_size=4, seed=0, compute_inverse_flow=True,
+            emit_masks=True)
+        slabs = make_slab_packer(cfg4, dev)(flowgen_torch.atlas_for_config(cfg4))
+        args, opts = scene_tables(cfg4, 0, 0, slabs, dev)
+        n_rot = int((args[1][:, :, 1, ps.OMI_TEX] >= slabs[0].shape[0] // 2
+                     ).sum())
+        k_out = as_batch(ps.scene_render(*args, **opts))
+        torch.cuda.synchronize()
+        p_out = as_batch(ps.scene_render_plain(*args, **opts))
+        cmp = gates(k_out, p_out)
+        print(f"mode {mode} kernel vs plain (B=4, 512x384, tsplit "
+              f"{opts['spec_key'][6]}, slabs {tuple(slabs[0].shape)}, {n_rot} "
+              f"objects on rot90 slabs, inverse flow and ids): "
+              + json.dumps(cmp, sort_keys=True))
+        if not cmp["ok"]:
+            fail(f"mode {mode} kernel vs plain gates failed")
+        worst = max(worst, cmp["max_abs_err"])
+        if mode == 13:
+            keep = (p_out, slabs)
+    return keep[0], worst, keep[1]
+
+
+def phase_mode13(card, dev):
+    """Phases 9-11. Returns the scene kernel's mode-13 numbers."""
+    import flowgen_torch
+    from flowgen_torch.ops import scene as ps
+
+    plain4, worst, slabs = phase_quadrant(card, dev)
+    cfg = flowgen_torch.DataGenConfig(mode=13, batch_size=64, seed=0,
+                                      compute_inverse_flow=True,
+                                      emit_masks=True)
+    atlas = flowgen_torch.atlas_for_config(cfg)
+
+    # ---- 10: the main path ----
+    first, res = run_main_path(cfg, atlas, card)
+    g = gates({k: v[:4] for k, v in first.items()}, plain4)
+    print("mode 13 main path step 0 vs plain (samples 0-3): "
+          + json.dumps(g, sort_keys=True))
+    if not g["ok"]:
+        fail("mode 13 main path output disagrees with the plain render")
+    del first
+    if any(res["launches"][k] for k in ("coarse_gdisp", "hwarp_rows")):
+        fail("the mode-13 path launched bank kernels")
+    layers = layer_breakdown(cfg, slabs, dev)
+    print("mode 13 layers (ms per step, host clock, synchronized): "
+          + json.dumps({k: round(v, 3) for k, v in layers.items()})
+          + f" [{card}]")
+
+    # ---- 11: scene kernel timing at B=64 ----
+    args, opts = scene_tables(cfg, 0, 0, slabs, dev)
+    k_ms = event_ms(lambda: ps.scene_render(*args, **opts))
+    k_out = ps.scene_render(*args, **opts)
+    p_ms, p_out = host_ms(lambda: ps.scene_render_plain(*args, **opts))
+    g64 = gates(as_batch(k_out), as_batch(p_out))
+    bd = bound(args, opts)
+    print(f"mode 13 scene kernel (B=64, inverse flow and ids): {k_ms:.3f} ms "
+          f"per launch (CUDA events, 10 launches); plain version {p_ms:.1f} "
+          f"ms; bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
+          f"({bd['bytes']:.4e} bytes, {bd['operations']:.4e} float ops) "
+          f"[{card}]")
+    print("mode 13 kernel vs plain (scene, B=64): "
+          + json.dumps(g64, sort_keys=True))
+    if not g64["ok"]:
+        fail("mode 13 kernel vs plain gates failed at B=64")
+    return {"launches": res["launches"]["scene_render"], "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": bd["bound_ms"],
+            "bound_by": bd["bound_by"],
+            "max_abs_err": max(worst, g["max_abs_err"], g64["max_abs_err"])}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
@@ -715,13 +866,12 @@ def main():
     bank = phase_bank(cfg, dev)
 
     # ---- 6: mode-9 scene kernel vs plain ----
-    s0, plain9, cmp9, slabs = phase_mode9_scene(cfg, atlas, bank["aux"], card,
-                                                dev)
+    s0, plain9, worst9, slabs = phase_mode9_scene(cfg, atlas, bank["aux"],
+                                                  card, dev)
 
     # ---- 7: the mode-9 main path ----
     first, res = run_main_path(cfg, atlas, card, prof_steps=4)
-    g = gates(tuple(first[k][s0 : s0 + 4] for k in ("image0", "image1", "flow0")),
-              plain9)
+    g = gates({k: v[s0 : s0 + 4] for k, v in first.items()}, plain9)
     print(f"mode 9 main path step 0 vs plain (samples {s0}-{s0 + 3}): "
           + json.dumps(g, sort_keys=True))
     if not g["ok"]:
@@ -743,13 +893,12 @@ def main():
     # ---- 8: per-kernel timing at the main path's shapes ----
     idx = torch.arange(cfg.batch_size)
     scenes = sample(cfg, cfg.seed, idx, dev, wg.bank_size(cfg))
-    args, key, use_aa = fused.scene_tables(scenes, cfg, *slabs, bank["aux"])
-    k_ms = event_ms(lambda: ps.scene_render(*args, spec_key=key, use_aa=use_aa))
-    k_out = ps.scene_render(*args, spec_key=key, use_aa=use_aa)
-    p_ms, p_out = host_ms(
-        lambda: ps.scene_render_plain(*args, spec_key=key, use_aa=use_aa))
-    g64 = gates(as_batch(*k_out), as_batch(*p_out))
-    bd = bound(args, key, use_aa)
+    args, opts = fused.scene_tables(scenes, cfg, *slabs, bank["aux"])
+    k_ms = event_ms(lambda: ps.scene_render(*args, **opts))
+    k_out = ps.scene_render(*args, **opts)
+    p_ms, p_out = host_ms(lambda: ps.scene_render_plain(*args, **opts))
+    g64 = gates(as_batch(k_out), as_batch(p_out))
+    bd = bound(args, opts)
     print(f"mode 9 scene kernel (B=64): {k_ms:.3f} ms per launch (CUDA events, "
           f"10 launches); plain version {p_ms:.1f} ms; bound "
           f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} "
@@ -758,28 +907,38 @@ def main():
     print("mode 9 kernel vs plain (scene, B=64): " + json.dumps(g64, sort_keys=True))
     if not g64["ok"]:
         fail("mode 9 kernel vs plain gates failed at B=64")
+    m9 = {"launches": counts["scene_render"], "ms": k_ms, "plain_ms": p_ms,
+          "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
+          "max_abs_err": max(worst9, g["max_abs_err"], g64["max_abs_err"])}
     bt = phase_bank_timing((("768", bank["f768"]), ("1536", bank["f1536"])), card)
     h768, h1536 = bt["768"]["hwarp"], bt["1536"]["hwarp"]
     c768, c1536 = bt["768"]["coarse"], bt["1536"]["coarse"]
+    bank_err = bank["max_abs_err"]
+    del bank, slabs, args, k_out, p_out
+
+    # ---- 9-11: modes 13 and 11, the mode-13 main path ----
+    m13 = phase_mode13(card, dev)
 
     rows = [
         {
             "name": "scene_render", "route": "cuda",
             "source": "flowgen_torch/csrc/scene.cu",
             "replaces": "flowgen/ops/pallas_scene.py:1510",
-            "launches": counts["scene_render"],
-            "max_abs_err": max(cmp9["max_abs_err"], g64["max_abs_err"]),
-            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bd["bound_ms"],
-            "bound_by": bd["bound_by"], "library_ms": None,
-            "path": "mode 9, B=64",
-            "mode7": m7,
+            "launches": m13["launches"],
+            "max_abs_err": max(m7["max_abs_err"], m9["max_abs_err"],
+                               m13["max_abs_err"]),
+            "ms": m13["ms"], "plain_ms": m13["plain_ms"],
+            "bound_ms": m13["bound_ms"], "bound_by": m13["bound_by"],
+            "library_ms": None,
+            "path": "mode 13 with inverse flow and masks, B=64",
+            "mode9": m9, "mode7": m7,
         },
         {
             "name": "coarse_gdisp", "route": "cuda",
             "source": "flowgen_torch/csrc/fields.cu",
             "replaces": "flowgen/warpfields/pallas_fields.py:98",
             "launches": counts["coarse_gdisp"],
-            "max_abs_err": max(bank["max_abs_err"], c768["max_abs_err"],
+            "max_abs_err": max(bank_err, c768["max_abs_err"],
                                c1536["max_abs_err"]),
             "ms": c768["ms"], "plain_ms": c768["plain_ms"],
             "bound_ms": c768["bound_ms"], "bound_by": "bytes",
@@ -793,7 +952,7 @@ def main():
             "source": "flowgen_torch/csrc/fields.cu",
             "replaces": "flowgen/warpfields/pallas_fields.py:174",
             "launches": counts["hwarp_rows"],
-            "max_abs_err": max(bank["max_abs_err"], h768["max_abs_err"],
+            "max_abs_err": max(bank_err, h768["max_abs_err"],
                                h1536["max_abs_err"]),
             "ms": h768["ms"], "plain_ms": h768["plain_ms"],
             "bound_ms": h768["bound_ms"], "bound_by": "bytes",

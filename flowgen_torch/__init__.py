@@ -5,13 +5,16 @@ background and 16-24 textured moving shapes per sample, and the dense
 forward flow between them, generated from ``(seed, step)``. The JAX package
 ``flowgen`` stays the reference; this package imports neither it nor JAX.
 
-Ported so far: the mode-7 main path (and the other rigid modes without
-quadrant factoring): threefry scene sampling, the scene-kernel precompute,
-the hand-written CUDA scene kernel (``csrc/scene.cu``) with its plain
-PyTorch version, the output adapter and the streaming ``Generator``; and
-mode 9: the warp-field bank (``warpfields/``, CUDA kernels in
-``csrc/fields.cu``) and the scene kernel's displacement warps
-(``csrc/warp.cuh``).
+Ported so far: the mode-7 main path (and the other rigid modes): threefry
+scene sampling, the scene-kernel precompute, the hand-written CUDA scene
+kernel (``csrc/scene.cu``) with its plain PyTorch version, the output
+adapter and the streaming ``Generator``; mode 9: the warp-field bank
+(``warpfields/``, CUDA kernels in ``csrc/fields.cu``) and the scene
+kernel's displacement warps (``csrc/warp.cuh``); and modes 11 and 13
+(quadrant slabs, 2x2 frame-1 texture sub-windows), the inverse flow
+(``flow1``) and the occlusion and motion-boundary masks. Photometric
+augmentation, the TextureDB path and the windowed fallback are not ported
+yet (ROADMAP.md, port queue).
 """
 
 from .config import (

@@ -29,6 +29,12 @@ def div(a, b):
     return torch.div(a, b)
 
 
+def sqrt(x):
+    """Correctly rounded float32 square root on any device: taken in float64
+    and rounded once (exact, as float64 carries more than twice the bits)."""
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
 def mod(a, b):
     """``jnp.mod`` for floats: the sign of the divisor, built on ``fmod``
     (``torch.remainder`` computes ``a - b * floor(a / b)`` instead)."""

@@ -4,19 +4,21 @@
 Here (dense tensor code, batched over samples): per-object screen bboxes and
 painter-order compaction, window-tile grids with ownership rectangles,
 screen-space edge tables, ellipse inverse transforms, the per-tile frame-1
-resample coefficients with the reflect fold composed in, and the background
-metadata. In the kernel (``ops/scene.py``): everything per pixel. The
-tables are contiguous tensors; the TPU-only flattening to SMEM rows is not
-ported.
+resample coefficients with the reflect fold composed in (for modes 11 and
+13 after the quadrant factoring), the background metadata, and the masks
+derived from the kernel's id images. In the kernel (``ops/scene.py``):
+everything per pixel. The tables are contiguous tensors; the TPU-only
+flattening to SMEM rows is not ported.
 """
 
 from __future__ import annotations
 
+import math
 import warnings
 
 import torch
 
-from .._fp import div, f32, mod
+from .._fp import div, f32, mod, sqrt
 from ..config import MAX_COMPONENTS, MAX_EDGES, DataGenConfig
 from ..ops import affine
 from ..ops import resample as resamp
@@ -75,7 +77,7 @@ def _ell_yext(tr, prims):
     cy = tr[..., 1, 2]
     a = tr[..., 1, 0] * prims.ell_rx
     b = tr[..., 1, 1] * prims.ell_ry
-    hy = torch.sqrt(a * a + b * b)
+    hy = sqrt(a * a + b * b)
     out = torch.stack([cy - hy, cy + hy], dim=-1)
     return out.reshape(out.shape[:-2] + (-1,))
 
@@ -87,7 +89,7 @@ def _ell_radius(tr, prims):
     rx, ry = prims.ell_rx, prims.ell_ry
     a, b = l[..., 0, 0] * rx, l[..., 0, 1] * ry
     c, d = l[..., 1, 0] * rx, l[..., 1, 1] * ry
-    return torch.sqrt(a * a + b * b + c * c + d * d)
+    return sqrt(a * a + b * b + c * c + d * d)
 
 
 def _fold_coeffs(t, cx, cy, nx, ny, margin):
@@ -121,6 +123,33 @@ def _fold_coeffs(t, cx, cy, nx, ny, margin):
     return torch.stack([A, B_, C_, c, d, f], dim=-1)
 
 
+def _quadrant_factor(minv, W, H):
+    """Factor each frame-1 sampling affine [..., 2, 3] (output -> source) as
+    quadrant times residual, so that the residual rotation stays within the
+    two-pass resampler's 45-degree bound for any object rotation (modes 11
+    and 13). q = round(theta / 90 deg); the 180-degree part is the point
+    reflection p -> -1 - p, under which the reflect extension is invariant;
+    the +-90-degree parts swap the coordinates and sample the rot90 slab
+    copy. Returns (t_eff [..., 2, 3], rot90 [...] bool)."""
+    theta = torch.atan2(minv[..., 1, 0], minv[..., 0, 0])
+    q = torch.round(div(theta, f32(math.pi / 2))).to(torch.int32)
+    mirror = (q == -1) | (q.abs() == 2)
+    rot90 = q.abs() == 1
+    tm = torch.where(
+        mirror[..., None, None],
+        torch.cat([-minv[..., :2], -minv[..., 2:] - 1.0], dim=-1),
+        minv,
+    )
+    tq = torch.stack(
+        [
+            tm[..., 1, :],
+            torch.cat([-tm[..., 0, :2], (W - 1.0) - tm[..., 0, 2:]], dim=-1),
+        ],
+        dim=-2,
+    )
+    return torch.where(rot90[..., None, None], tq, tm), rot90
+
+
 def _span_requirements(t_eff, wh, ww, chunk, xchunk):
     """Actual two-pass requirements (row_span, xs_need, ys_need) of
     effective output -> source affines ``t_eff`` [..., 2, 3]."""
@@ -145,16 +174,14 @@ def envelope_violations(scenes: Scene, cfg: DataGenConfig, bgm=None):
     spec = cfg.mode_spec
     wh, ww = min(ps.WIN_H, H), min(ps.WIN_W, W)
     P, PBG, xs, ys, xsb, ysb, tsp, _, _ = ps.resample_params(spec, H, W)
-    if ps.quadrant_needed(spec):
-        raise NotImplementedError(
-            "quadrant factoring (modes 11/13) is not ported yet (ROADMAP.md,"
-            " port queue item 1)"
-        )
     whs, wws = wh // tsp, ww // tsp
     chunk = float(min(resamp.PASS1_CHUNK, max(P, PBG)))
     xchunk = float(min(128, wws))
     objs = scenes.objects
-    span, xsn, ysn = _span_requirements(objs.motion_inv, whs, wws, chunk, xchunk)
+    t_eff = objs.motion_inv
+    if ps.quadrant_needed(spec):
+        t_eff, _ = _quadrant_factor(t_eff, float(W), float(H))
+    span, xsn, ysn = _span_requirements(t_eff, whs, wws, chunk, xchunk)
     bad = (span > P) | (xsn > xs) | (ysn > ys)
     _, (lo1, hi1) = render_mod._all_bboxes(scenes.prims, objs.motion)
     on1 = objs.valid & ~render_mod._offscreen(
@@ -192,10 +219,12 @@ def check_ellipse_bound(spec):
         )
 
 
-def prepare_scene_inputs(scene: Scene, cfg: DataGenConfig, n_textures: int):
+def prepare_scene_inputs(scene: Scene, cfg: DataGenConfig, n_textures: int,
+                         quadrant: bool = False):
     """Build a batch's scene-kernel operands: (count (B,), order (B,K),
     omi (B,K,2,16), omf (B,K,2,88), tmi (B,K,2,9,8), tmf (B,K,2,9,8),
-    edges (B,K,2,4,EP))."""
+    edges (B,K,2,4,EP)). ``quadrant`` factors the frame-1 sampling affines
+    (:func:`_quadrant_factor`) onto slabs with rot90 copies at [T:2T]."""
     check_ellipse_bound(cfg.mode_spec)
     H, W = cfg.height, cfg.width
     wh, ww = min(ps.WIN_H, H), min(ps.WIN_W, W)
@@ -249,10 +278,16 @@ def prepare_scene_inputs(scene: Scene, cfg: DataGenConfig, n_textures: int):
     zeros = torch.zeros_like(tex_id)
     warp_slot = objs.warp_slot.to(torch.int32)
 
-    t_samp1 = objs.motion_inv
-    tex_id1 = tex_id
-    nx1 = torch.full((B, K, 1), float(W), device=dev)
-    ny1 = torch.full((B, K, 1), float(H), device=dev)
+    if quadrant:
+        t_samp1, rot90_k = _quadrant_factor(objs.motion_inv, float(W), float(H))
+        tex_id1 = tex_id + n_textures * rot90_k.to(tex_id.dtype)
+        nx1 = torch.where(rot90_k, float(H), float(W))[..., None]
+        ny1 = torch.where(rot90_k, float(W), float(H))[..., None]
+    else:
+        t_samp1 = objs.motion_inv
+        tex_id1 = tex_id
+        nx1 = torch.full((B, K, 1), float(W), device=dev)
+        ny1 = torch.full((B, K, 1), float(H), device=dev)
 
     def omi_frame(on, nty, ntx, tex):
         cols = [
@@ -361,24 +396,17 @@ def check_slice(cfg: DataGenConfig):
     todo = []
     if spec.warp_p > 0.0 and cfg.warp_bank_impl != "pallas":
         todo.append("warp_bank_impl='xla' (mode 9's quad-gather bank): port "
-                    "queue item 4")
-    if ps.quadrant_needed(spec) or (
-        ps.texture_split(spec, cfg.height, cfg.width) or 1) > 1:
-        todo.append("quadrant / texture_split > 1 (modes 11, 13): port queue item 1")
-    if cfg.compute_inverse_flow:
-        todo.append("compute_inverse_flow: port queue item 1")
-    if cfg.emit_masks:
-        todo.append("emit_masks: port queue item 1")
+                    "queue item 3")
     if cfg.photometric_augment:
-        todo.append("photometric_augment: port queue item 2")
+        todo.append("photometric_augment: port queue item 1")
     if (cfg.render_impl == "windowed" or cfg.use_pallas == "never"
             or not cfg.windowed):
-        todo.append("the windowed renderer: port queue item 7")
+        todo.append("the windowed renderer: port queue item 6")
     if cfg.texture_dbases:
-        todo.append("texture_dbases / TextureDB: port queue item 3")
+        todo.append("texture_dbases / TextureDB: port queue item 2")
     if not ps.fused_eligible(spec, cfg.height, cfg.width):
         todo.append("frames not (8, 128)-aligned need the windowed renderer: "
-                    "port queue item 7")
+                    "port queue item 6")
     if todo:
         raise NotImplementedError(
             "not ported yet (see ROADMAP.md): " + "; ".join(todo)
@@ -387,14 +415,18 @@ def check_slice(cfg: DataGenConfig):
 
 def scene_tables(scenes: Scene, cfg: DataGenConfig, slabs, bgslabs, src_hw,
                  warp_aux=None):
-    """A batch's scene-kernel inputs: ``(args, spec_key, use_aa)``, with
-    ``args`` in :func:`ops.scene.scene_render`'s order. ``src_hw``: the
-    background sources' (height, width). Nonrigid modes pass ``warp_aux``,
-    the ``compose/render.py:WarpAux`` of
-    ``warpfields/generator.py:make_bank_and_aux``."""
+    """A batch's scene-kernel inputs: ``(args, options)``, with ``args`` in
+    :func:`ops.scene.scene_render`'s order and ``options`` its keyword
+    arguments (``spec_key``, ``use_aa``, ``inverse_flow``, ``emit_masks``).
+    ``src_hw``: the background sources' (height, width). Nonrigid modes pass
+    ``warp_aux``, the ``compose/render.py:WarpAux`` of
+    ``warpfields/generator.py:make_bank_and_aux``. Quadrant modes take
+    ``slabs`` with the rot90 copies (``ops/scene.py:prepare_slabs``)."""
     H, W = cfg.height, cfg.width
+    quadrant = ps.quadrant_needed(cfg.mode_spec)
+    n_tex = slabs.shape[0] // 2 if quadrant else slabs.shape[0]
     count, order, omi, omf, tmi, tmf, edges = prepare_scene_inputs(
-        scenes, cfg, slabs.shape[0]
+        scenes, cfg, n_tex, quadrant=quadrant
     )
     bg = scenes.background
     bg_meta = torch.stack(
@@ -418,27 +450,62 @@ def scene_tables(scenes: Scene, cfg: DataGenConfig, slabs, bgslabs, src_hw,
     worklist, n_units = ps.build_worklists(count, order, omi)
     args = (bg_meta, omi, omf, tmi, tmf.contiguous(), bgm.contiguous(),
             edges.contiguous(), slabs, bgslabs, worklist, n_units) + planes
-    spec_key = ps.resample_params(cfg.mode_spec, H, W) + (H, W)
-    return args, spec_key, cfg.use_antialiasing
+    options = dict(
+        spec_key=ps.resample_params(cfg.mode_spec, H, W) + (H, W),
+        use_aa=cfg.use_antialiasing, inverse_flow=cfg.compute_inverse_flow,
+        emit_masks=cfg.emit_masks,
+    )
+    return args, options
 
 
 def render_batch_fused(scenes: Scene, slabs, bgslabs, src_hw,
                        cfg: DataGenConfig, bg_only: bool = False,
                        warp_aux=None):
-    """Fused render of a batch: (image0, image1, flow0) with images
-    (B,H,W,3) float32 in [0, 255] and flow (B,H,W,2). ``src_hw``: the
-    background sources' (height, width). Nonrigid modes pass ``warp_aux``
-    (a ``compose/render.py:WarpAux``)."""
+    """Fused render of a batch: (image0, image1, flow0[, flow1][, occlusion,
+    motion_boundary]) with images (B,H,W,3) float32 in [0, 255], flows
+    (B,H,W,2) and masks (B,H,W) bool, ``flow1`` with
+    ``cfg.compute_inverse_flow`` and the masks with ``cfg.emit_masks``.
+    ``src_hw``: the background sources' (height, width). Nonrigid modes pass
+    ``warp_aux`` (a ``compose/render.py:WarpAux``)."""
     check_slice(cfg)
-    args, spec_key, use_aa = scene_tables(scenes, cfg, slabs, bgslabs, src_hw,
-                                          warp_aux)
-    frames, flow = ps.scene_render(*args, spec_key=spec_key, use_aa=use_aa,
-                                   bg_only=bg_only)
+    args, options = scene_tables(scenes, cfg, slabs, bgslabs, src_hw, warp_aux)
+    frames, flow, ids = ps.scene_render(*args, bg_only=bg_only, **options)
 
     def unpack(v):
         return torch.stack(resamp.unpack_rgb(v), dim=-1)
 
-    image0 = unpack(frames[:, 0])
-    image1 = unpack(frames[:, 1])
-    flow0 = flow.permute(0, 2, 3, 1)
-    return image0, image1, flow0
+    out = [unpack(frames[:, 0]), unpack(frames[:, 1]),
+           flow[:, 0:2].permute(0, 2, 3, 1)]
+    if cfg.compute_inverse_flow:
+        out.append(flow[:, 2:4].permute(0, 2, 3, 1))
+    if cfg.emit_masks:
+        out += list(masks_from_ids(ids, flow[:, 0], flow[:, 1]))
+    return tuple(out)
+
+
+def masks_from_ids(ids, fx, fy):
+    """Occlusion and motion-boundary masks from the painter's id images
+    ``ids`` (B, 2, H, W) and the forward flow ``fx``, ``fy`` (B, H, W).
+    ``occlusion``: frame-0 pixel p is occluded where p + f(p), rounded to
+    the nearest pixel (half to even), leaves the frame or lands on another
+    id in frame 1. ``motion_boundary``: 4-neighbourhood discontinuities of
+    the frame-0 id image, edges replicated. Returns two (B, H, W) bool
+    tensors. Plain tensor code on any device, as in the JAX package."""
+    B, _, H, W = ids.shape
+    ids0, ids1 = ids[:, 0], ids[:, 1]
+    yy = torch.arange(H, dtype=torch.float32, device=ids.device)[:, None]
+    xx = torch.arange(W, dtype=torch.float32, device=ids.device)[None, :]
+    tx = torch.round(xx + fx).to(torch.int32)
+    ty = torch.round(yy + fy).to(torch.int32)
+    oob = (tx < 0) | (tx >= W) | (ty < 0) | (ty >= H)
+    base = (torch.arange(B, device=ids.device) * (H * W))[:, None, None]
+    flat = (base + torch.clamp(ty, 0, H - 1) * W
+            + torch.clamp(tx, 0, W - 1)).long()
+    occlusion = oob | (ids1.reshape(-1)[flat] != ids0)
+    up = torch.cat([ids0[:, :1], ids0[:, :-1]], dim=1)
+    down = torch.cat([ids0[:, 1:], ids0[:, -1:]], dim=1)
+    left = torch.cat([ids0[:, :, :1], ids0[:, :, :-1]], dim=2)
+    right = torch.cat([ids0[:, :, 1:], ids0[:, :, -1:]], dim=2)
+    boundary = ((ids0 != up) | (ids0 != down) | (ids0 != left)
+                | (ids0 != right))
+    return occlusion, boundary

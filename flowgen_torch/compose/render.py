@@ -10,6 +10,7 @@ from typing import NamedTuple
 
 import torch
 
+from .._fp import sqrt
 from ..ops import affine
 
 AA_MARGIN = 2.0          # AA feather reaches 0.5 px outside the outline
@@ -53,7 +54,7 @@ def _all_bboxes(prims, motions):
         lin = tr[..., :2]
         ex = lin[..., 0] * prims.ell_rx[..., None]
         ey = lin[..., 1] * prims.ell_ry[..., None]
-        ext = torch.sqrt(ex * ex + ey * ey)
+        ext = sqrt(ex * ex + ey * ey)
         is_poly = prims.is_poly[..., None]
         lo = torch.where(is_poly, pmin, center - ext)
         hi = torch.where(is_poly, pmax, center + ext)

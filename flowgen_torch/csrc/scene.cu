@@ -1,15 +1,18 @@
-// Scene kernel: renders a batch of flowgen scenes (both frames and the
-// forward flow) on NVIDIA Hopper.
+// Scene kernel: renders a batch of flowgen scenes (both frames, the forward
+// flow and, when asked, the inverse flow and the painter's id images) on
+// NVIDIA Hopper.
 //
 // Replaces the TPU megakernel flowgen/ops/pallas_scene.py:scene_render_pallas
-// (kernel body _make_scene_kernel) with tsplit == 1: the rigid branch and the
-// mode-9 warp branch (has_warp; device functions in warp.cuh). No quadrant
-// sub-windows, no inverse flow, no id images.
+// (kernel body _make_scene_kernel), all of its branches: the rigid branch,
+// the frame-1 texture sub-windows of the quadrant modes 11 and 13
+// (tsplit == 2; the quadrant itself is composed into the tables and the
+// rot90 slab copies on the host), the mode-9 warp branch (has_warp; device
+// functions in warp.cuh), inverse flow and id images.
 //
 // What bounds it. Bytes: 2 frames of packed RGB plus 2 flow planes per sample
-// written once (16 bytes a pixel) and the texels the output depends on, read
-// once (a pixel that a later object covers fully needs no texel from below
-// it). Next to them, the exact-area coverage costs one trapezoid integral
+// written once (16 bytes a pixel; inverse flow adds 8, id images 8) and the
+// texels the output depends on, read once (a pixel that a later object
+// covers fully needs no texel from below it). Next to them, the exact-area coverage costs one trapezoid integral
 // (~45 float operations) per (polygon edge, owned pixel) pair that survives
 // the row-block cull. On mode-7 scenes at the main path's shapes the two
 // bounds are within a few tens of percent of each other (chip_smoke.py
@@ -67,10 +70,13 @@ constexpr float kEllCullM = 2.0f;
 
 // bgm / objmeta / tilemeta layouts (flowgen_torch/ops/scene.py).
 constexpr int kBgmT0 = 0, kBgmT1 = 6, kBgmSrcW = 12, kBgmSrcH = 13;
-constexpr int kBgmPix = 16, kBgmFaff = 24, kBgmSize = 40;
+constexpr int kBgmPix = 16, kBgmFaff = 24, kBgmIpix = 32, kBgmSize = 40;
 constexpr int kOmiTex = 3, kOmiNPrims = 4, kOmiAddBits = 5, kOmiPolyBits = 6;
 constexpr int kOmiWarp = 7, kOmiNEdges = 8, kOmiSlot = 15, kOmiSize = 16;
-constexpr int kOmfMotion = 0, kOmfEll = 8, kOmfExt = 72, kOmfSize = 88;
+constexpr int kOmfMotion = 0, kOmfEll = 8, kOmfRaw = 64, kOmfExt = 72;
+constexpr int kOmfSize = 88;
+// Id image values (flowgen_torch/config.py): background, first object slot.
+constexpr int kBgId = 1, kFgIdBase = 10;
 constexpr int kTmiSize = 8, kTmfSize = 8;
 
 struct SceneParams {
@@ -89,10 +95,12 @@ struct SceneParams {
   const float* bgaux;   // mode 9: (N, 2, H + 2*BG_EY, W) [gdisp, vdisp]
   const int* bg_band;   // mode 9: (N, n_bg_tiles, ww / 128) pass-1 band tiles
   int* frames;          // (B, 2, H, W)
-  float* flow;          // (B, 2, H, W)
+  float* flow;          // (B, 2 or 4, H, W): forward, then inverse planes
+  int* ids;             // emit_masks: (B, 2, H, W)
   int B, K, EP, H, W, T, SHs, SWs, Tb, SHb, SWb, P, PBG, CWO, CWB;
   int xscan, yscan, xscanb, yscanb;   // the TPU kernel's band scan counts
-  int use_aa, bg_only;
+  int tsplit;           // frame-1 texture sub-windows per axis (1 or 2)
+  int use_aa, bg_only, inverse_flow, emit_masks;
 };
 
 // Composite coverage of one unit at pixel (x, y): per-primitive exact area,
@@ -173,8 +181,12 @@ namespace flowgen {
 
 // kWarp: the mode-9 instantiation. The rigid one holds none of the warp
 // code, so its register count (and occupancy) is the rigid branch's own.
+// Both are held to a number of CTAs an SM: the rigid one to 4 (at most 64
+// registers a thread), the warp one to 3 (at most 85). With no such minimum
+// the warp one took 119 registers and ran a fifth slower; with a minimum of
+// 1 the rigid one took 90 and ran a third slower (PERF.md).
 template <bool kWarp>
-__global__ void __launch_bounds__(kTileW* kTileH)
+__global__ void __launch_bounds__(kTileW* kTileH, kWarp ? 3 : 4)
     scene_kernel(const SceneParams p) {
   __shared__ float sedges[4][kEdgePool];
   const int frame = blockIdx.z & 1;
@@ -224,8 +236,9 @@ __global__ void __launch_bounds__(kTileW* kTileH)
       two_pass_pixel(bslab, p.SWb, w0, c0, p.CWB, p.PBG, co, x, y, rgb);
     }
     val = pack3(rintf(rgb[0]), rintf(rgb[1]), rintf(rgb[2]));
-    // Affine flow init: each product rounded on its own (-fmad=false).
-    const float* m = bgm + kBgmPix;
+    // Affine flow init, forward in frame 0 and inverse in frame 1: each
+    // product rounded on its own (-fmad=false).
+    const float* m = bgm + (frame ? kBgmIpix : kBgmPix);
     flx = ((m[0] * xf + m[1] * yf) + m[2]) - xf;
     fly = ((m[3] * xf + m[4] * yf) + m[5]) - yf;
     if (frame == 0 && bg_warp) {
@@ -259,6 +272,8 @@ __global__ void __launch_bounds__(kTileW* kTileH)
   }
 
   // ---- object units in painter's order ----
+  const bool track_flow = frame == 0 || p.inverse_flow;
+  int idv = kBgId;
   if (!p.bg_only) {
     const int K = p.K;
     const int maxw = K * kMaxTiles;
@@ -300,12 +315,13 @@ __global__ void __launch_bounds__(kTileW* kTileH)
       const float* slot_aux =
           warping ? p.aux + (size_t)om[kOmiSlot] * 4 * pl : nullptr;
       const int* slab = p.slabs + (size_t)om[kOmiTex] * p.SHs * p.SWs;
+      // ins: the binary mask (the warped one for a deforming frame 1).
       float aa = 0.0f, ins = 0.0f, mm;
       float tex[3];
       if (frame == 1 && warping) {
         warp_unit_pixel(g, om, of, sedges, slot_aux, slot_aux + pl, slab,
                         p.SHs, p.SWs, p.P, p.CWO, p.use_aa, x, y, y0w, x0w,
-                        &mm, tex);
+                        &mm, &ins, tex);
       } else {
         unit_coverage(om, of, sedges, x, y, y0w, x0w, wh, &aa, &ins);
         mm = p.use_aa ? aa : ins;
@@ -314,13 +330,27 @@ __global__ void __launch_bounds__(kTileW* kTileH)
           const int sx = (kSlabMargin + x0w) & ~127;
           unpack3(__ldg(slab + (size_t)(sy + y - y0w) * p.SWs + sx + (x - x0w)),
                   tex);
-        } else {
+        } else if (p.tsplit == 1) {
           float co[6];
           const float* tc = p.tmf + (kf * kMaxTiles + t) * kTmfSize;
 #pragma unroll
           for (int i = 0; i < 6; ++i) co[i] = tc[i];
           const int w0 = pass1_row_start(co, x0w, y0w, wh, ww, p.P, p.SHs);
           const int c0 = col_window(co, x0w, w0, ww, p.P, p.CWO, p.SWs);
+          two_pass_pixel(slab, p.SWs, w0, c0, p.CWO, p.P, co, x, y, tex);
+        } else {
+          // The pixel's texture sub-window: the raw residual affine folded
+          // at the sub-window's centre with the source's reflect periods,
+          // then the two-pass resample of that sub-window's row block.
+          const int whs = wh / p.tsplit, wws = ww / p.tsplit;
+          const int oy = y0w + ((y - y0w) / whs) * whs;
+          const int ox = x0w + ((x - x0w) / wws) * wws;
+          float co[6];
+          fold_coeffs(of + kOmfRaw, (float)ox + 0.5f * (float)wws,
+                      (float)oy + 0.5f * (float)whs, of[kOmfRaw + 6],
+                      of[kOmfRaw + 7], (float)kSlabMargin, co);
+          const int w0 = pass1_row_start(co, ox, oy, whs, wws, p.P, p.SHs);
+          const int c0 = col_window(co, ox, w0, wws, p.P, p.CWO, p.SWs);
           two_pass_pixel(slab, p.SWs, w0, c0, p.CWO, p.P, co, x, y, tex);
         }
       }
@@ -329,13 +359,16 @@ __global__ void __launch_bounds__(kTileW* kTileH)
       const float om1 = 1.0f - mm;
       val = pack3(rintf(f[0] * om1 + tex[0] * mm), rintf(f[1] * om1 + tex[1] * mm),
                   rintf(f[2] * om1 + tex[2] * mm));
-      if (frame == 0) {
+      // The painter's id: the object's slot where the binary mask is 1.
+      if (ins >= 1.0f) idv = kFgIdBase + k;
+      if (track_flow) {
+        // Frame 1's OMF_MOTION is the inverse motion.
         const float* mo = of + kOmfMotion;
         const float ofx = ((mo[0] * xf + mo[1] * yf) + mo[2]) - xf;
         const float ofy = ((mo[3] * xf + mo[4] * yf) + mo[5]) - yf;
         flx = ofx * ins + flx * (1.0f - ins);
         fly = ofy * ins + fly * (1.0f - ins);
-        if (warping) {
+        if (frame == 0 && warping) {
           // + forward field at the moved position, inside the frame, under
           // the same mask.
           const float mvx = (mo[0] * xf + mo[1] * yf) + mo[2];
@@ -360,10 +393,12 @@ __global__ void __launch_bounds__(kTileW* kTileH)
   if (inside) {
     const size_t pix = (size_t)y * W + x;
     p.frames[((size_t)b * 2 + frame) * H * W + pix] = val;
-    if (frame == 0) {
-      p.flow[((size_t)b * 2 + 0) * H * W + pix] = flx;
-      p.flow[((size_t)b * 2 + 1) * H * W + pix] = fly;
+    if (track_flow) {
+      const size_t c0 = (size_t)b * (p.inverse_flow ? 4 : 2) + 2 * frame;
+      p.flow[c0 * H * W + pix] = flx;
+      p.flow[(c0 + 1) * H * W + pix] = fly;
     }
+    if (p.emit_masks) p.ids[((size_t)b * 2 + frame) * H * W + pix] = idv;
   }
 }
 
@@ -374,11 +409,11 @@ extern "C" int flowgen_scene_render(
     const int* omi, const float* omf, const int* tmi, const float* tmf,
     const float* bgm, const float* edges, const int* slabs,
     const int* bgslabs, const float* aux, const float* bgaux,
-    const int* bg_band, int* frames,
-    float* flow, int B, int K, int EP, int H, int W, int T, int SHs, int SWs,
-    int Tb, int SHb, int SWb, int P, int PBG, int CWO, int CWB, int xscan,
-    int yscan, int xscanb, int yscanb, int has_warp, int use_aa, int bg_only,
-    void* stream) {
+    const int* bg_band, int* frames, float* flow, int* ids, int B, int K,
+    int EP, int H, int W, int T, int SHs, int SWs, int Tb, int SHb, int SWb,
+    int P, int PBG, int CWO, int CWB, int xscan, int yscan, int xscanb,
+    int yscanb, int tsplit, int has_warp, int use_aa, int bg_only,
+    int inverse_flow, int emit_masks, void* stream) {
   flowgen::SceneParams p;
   p.worklist = worklist;
   p.n_units = n_units;
@@ -396,6 +431,7 @@ extern "C" int flowgen_scene_render(
   p.bg_band = bg_band;
   p.frames = frames;
   p.flow = flow;
+  p.ids = ids;
   p.B = B;
   p.K = K;
   p.EP = EP;
@@ -415,8 +451,11 @@ extern "C" int flowgen_scene_render(
   p.yscan = yscan;
   p.xscanb = xscanb;
   p.yscanb = yscanb;
+  p.tsplit = tsplit;
   p.use_aa = use_aa;
   p.bg_only = bg_only;
+  p.inverse_flow = inverse_flow;
+  p.emit_masks = emit_masks;
   const dim3 block(flowgen::kTileW, flowgen::kTileH);
   const dim3 grid((W + flowgen::kTileW - 1) / flowgen::kTileW,
                   (H + flowgen::kTileH - 1) / flowgen::kTileH, 2 * B);

@@ -189,13 +189,15 @@ __device__ __forceinline__ void expanded_texel(
 
 // Frame 1 of a deforming object at output pixel (x, y) of its unit's window
 // (y0w, x0w): coverage and texture on the expanded window, displaced through
-// the slot's gdisp / vdisp planes. Returns the blend mask and texture.
+// the slot's gdisp / vdisp planes. Returns the blend mask, the warped binary
+// mask (disp(binary) >= 1 - 0.5/255, for the inverse flow and the ids) and
+// the texture.
 __device__ __noinline__ void warp_unit_pixel(
     const WarpFrame& g, const int* om, const float* of,
     const float (*sedges)[kEdgePool], const float* __restrict__ gdp,
     const float* __restrict__ vdp, const int* __restrict__ slab, int SHs,
     int SWs, int P, int CWO, int use_aa, int x, int y, int y0w, int x0w,
-    float* m_out, float tex[3]) {
+    float* m_out, float* in_out, float tex[3]) {
   const int ey0 = min(max(y0w - kWarpEY, 0), g.H - g.whE) & ~7;
   const int ex0 = min(max(x0w - kWarpEX, 0), g.W - g.wwE);
   const Tap tv = warp_tap(((float)y + __ldg(vdp + (size_t)y * g.W + x)) -
@@ -222,12 +224,10 @@ __device__ __noinline__ void warp_unit_pixel(
     for (int ch = 0; ch < 3; ++ch)
       rgb_r[k][ch] = rintf(tu.ok ? det_lerp(rgb[0][ch], rgb[1][ch], tu.t) : 0.0f);
   }
-  if (use_aa) {
-    *m_out = tv.ok ? det_lerp(aa_r[0], aa_r[1], tv.t) : 0.0f;
-  } else {
-    const float inw = tv.ok ? det_lerp(in_r[0], in_r[1], tv.t) : 0.0f;
-    *m_out = inw >= kInThr ? 1.0f : 0.0f;
-  }
+  const float inw = tv.ok ? det_lerp(in_r[0], in_r[1], tv.t) : 0.0f;
+  *in_out = inw >= kInThr ? 1.0f : 0.0f;
+  *m_out = use_aa ? (tv.ok ? det_lerp(aa_r[0], aa_r[1], tv.t) : 0.0f)
+                  : *in_out;
 #pragma unroll
   for (int ch = 0; ch < 3; ++ch)
     tex[ch] = tv.ok ? det_lerp(rgb_r[0][ch], rgb_r[1][ch], tv.t) : 0.0f;

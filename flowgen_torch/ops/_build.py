@@ -119,7 +119,7 @@ def load_scene_library():
     lib = _load("flowgen_scene")
     fn = lib.flowgen_scene_render
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 22 + [
+        fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 25 + [
             ctypes.c_void_p
         ]
         fn.restype = ctypes.c_int

@@ -16,7 +16,7 @@ import math
 
 import torch
 
-from .._fp import div, f32
+from .._fp import div, f32, sqrt
 
 _E12 = f32(1e-12)
 
@@ -185,7 +185,7 @@ def ellipse_chord_coverage(ux, uy, jxx, jxy, jyx, jyy, steps: int = 100):
     def chord(nx, ny):
         a = nx * jxx + ny * jyx
         b = nx * jxy + ny * jyy
-        norm = torch.clamp(torch.sqrt(a * a + b * b), min=f32(1e-9))
+        norm = torch.clamp(sqrt(a * a + b * b), min=f32(1e-9))
         l = nx * ux + ny * uy - coshalf
         return div(l, norm), div(a, norm), div(b, norm)
 

@@ -8,23 +8,24 @@ to u8, plus the affine background flow), then every (object, tile) work
 unit of each frame in painter's order: exact-area coverage with the
 composite screen algebra, the object texture (frame 0: the slab's identity
 window; frame 1: the two-pass affine resample), ``round(f(1-m) + t m)``
-blending, and the frame-0 flow overwrite under the binary mask. In mode 9
-a deforming object's frame 1 is evaluated on an expanded window and
-displaced through its bank slot's warp planes, a deforming background's
-frame 1 likewise on an extended grid, and the forward warp field adds to
-the flow at the moved positions.
+blending, and the flow overwrite under the binary mask (frame 0, and frame
+1 into the inverse-flow planes when asked). In mode 9 a deforming object's
+frame 1 is evaluated on an expanded window and displaced through its bank
+slot's warp planes, a deforming background's frame 1 likewise on an
+extended grid, and the forward warp field adds to the flow at the moved
+positions. Modes whose rotations pass 45 degrees (11, 13) sample frame 1
+from rot90 slab copies (quadrant slabs, composed into the tables by
+``compose/fused.py``) and, where the footprint needs it, over ``tsplit x
+tsplit`` sub-windows, each folded at its own centre. With ``emit_masks``
+each frame also gets its painter's id image.
 
 ``scene_render`` launches the hand-written CUDA kernel
 (``csrc/scene.cu``, ``csrc/warp.cuh``) for CUDA tensors and runs
 ``scene_render_plain`` for CPU tensors. ``scene_render_plain`` restates the
 JAX kernel's unit loop literally: windows, ownership rectangles, the staged
-two-pass resample (pass 1 over all P rows, then pass 2) and, in mode 9, the
-staged displacement warps with their banded taps.
-
-The rigid and warp branches with ``tsplit == 1`` are ported. The 2x2
-sub-window / quadrant branch (modes 11 and 13), inverse flow and the id
-images are not: ``compose/fused.py:check_slice`` refuses the configurations
-that need them, and ``scene_render`` refuses ``tsplit != 1``.
+two-pass resample (pass 1 over all P rows, then pass 2), the frame-1
+sub-windows and, in mode 9, the staged displacement warps with their banded
+taps.
 """
 
 from __future__ import annotations
@@ -37,6 +38,8 @@ import torch
 
 from . import resample as resamp
 from .._fp import div, f32
+from ..config import BACKGROUND_OBJ_ID as BG_ID
+from ..config import FOREGROUND_ID_BASE as FG_ID_BASE
 
 # Window tile size: one unit of object evaluation.
 WIN_H = 192
@@ -117,13 +120,31 @@ def _slab_of(img, hs: int, ws: int):
     return resamp._edge_pad(s, hs, ws)
 
 
-def prepare_slabs(atlas, height: int, width: int):
+def _stack_quadrant(tex, height: int, width: int):
+    """Packed slabs of ``tex`` (T, height, width, 3) and of their rot90(k=1)
+    copies, padded to the larger of both orientations and stacked along T:
+    slots [T:2T] hold the rotated sources (frame-1 texture ids of an odd
+    quadrant point there). The 180-degree quadrant needs no copy: the
+    reflect extension is invariant under the point reflection."""
+    h0, w0 = slab_shape(height, width)
+    h1, w1 = slab_shape(width, height)
+    hs, ws = max(h0, h1), max(w0, w1)
+    base = [_slab_of(im, hs, ws) for im in tex]
+    rot = [_slab_of(torch.rot90(im, 1, (0, 1)), hs, ws) for im in tex]
+    return torch.stack(base + rot)
+
+
+def prepare_slabs(atlas, height: int, width: int, quadrant: bool = False):
     """(T, SH, SW, 3) atlas -> (T, SHs, SWs) int32 packed slabs of the
-    frame-sized centre crops with SLAB_MARGIN reflected texels per side."""
+    frame-sized centre crops with SLAB_MARGIN reflected texels per side.
+    ``quadrant`` adds the rot90 copies at slots [T:2T]
+    (:func:`_stack_quadrant`)."""
     sh, sw = atlas.shape[1], atlas.shape[2]
     y0 = (sh - height) // 2
     x0 = (sw - width) // 2
     crops = atlas[:, y0 : y0 + height, x0 : x0 + width]
+    if quadrant:
+        return _stack_quadrant(crops, height, width)
     hs, ws = slab_shape(height, width)
     return torch.stack([_slab_of(im, hs, ws) for im in crops])
 
@@ -289,49 +310,46 @@ def build_worklists(count, order, omi):
     return wl, nw
 
 
-def _check_branch(tsplit):
-    if tsplit != 1:
-        raise NotImplementedError(
-            "the 2x2 sub-window branch (tsplit=2) is not ported yet "
-            "(ROADMAP.md, port queue item 1)"
-        )
-
-
 def scene_render(bg_meta, omi, omf, tmi, tmf, bgm, edges, slabs, bgslabs,
                  worklist, n_units, warp_aux=None, bgaux=None, bg_band=None,
-                 *, spec_key, use_aa=True, bg_only=False):
+                 *, spec_key, use_aa=True, bg_only=False, inverse_flow=False,
+                 emit_masks=False):
     """Render a batch of scenes. Inputs (built by
     ``compose/fused.py:scene_tables``): ``bg_meta`` (B,3) [bg texture, bg
     warp flag, bg warp slot], ``omi`` (B,K,2,OMI_SIZE) i32, ``omf``
     (B,K,2,OMF_SIZE) f32, ``tmi`` (B,K,2,MAX_TILES,TMI_SIZE) i32, ``tmf``
     the same in f32, ``bgm`` (B,BGM_SIZE) f32, ``edges`` (B,K,2,4,EP) f32,
-    ``slabs`` (T,SHs,SWs) i32 and ``bgslabs`` (T,SHb,SWb) i32 packed slabs,
-    and the painter-order work lists of :func:`build_worklists`. Mode 9
-    passes the bank's warp planes ``warp_aux`` (N,4,H,W) and ``bgaux``
-    (N,2,H+2*BG_EY,W) and the bands :func:`bg_band_starts` derives from
-    ``bgaux`` (the fields of ``compose/render.py:WarpAux``, built by
+    ``slabs`` (T or 2T,SHs,SWs) i32 and ``bgslabs`` (T,SHb,SWb) i32 packed
+    slabs, and the painter-order work lists of :func:`build_worklists`.
+    Mode 9 passes the bank's warp planes ``warp_aux`` (N,4,H,W) and
+    ``bgaux`` (N,2,H+2*BG_EY,W) and the bands :func:`bg_band_starts` derives
+    from ``bgaux`` (the fields of ``compose/render.py:WarpAux``, built by
     ``warpfields/generator.py:make_bank_and_aux``).
     ``spec_key`` = (P, PBG, xs, ys, xsb, ysb, tsplit, cw_obj, cw_bg, H, W).
-    ``bg_only`` renders the backgrounds and the flow init only.
+    ``bg_only`` renders the backgrounds and the flow init only;
+    ``inverse_flow`` adds the frame-1 flow planes, ``emit_masks`` the id
+    images.
 
     CUDA tensors launch the scene kernel (once per call, counted in
     ``scene_render.launches``); CPU tensors run :func:`scene_render_plain`.
-    Returns (frames (B,2,H,W) int32 packed RGB, flow (B,2,H,W) f32)."""
-    _check_branch(spec_key[6])
+    Returns (frames (B,2,H,W) int32 packed RGB, flow (B,2 or 4,H,W) f32,
+    ids (B,2,H,W) int32 or None)."""
+    if spec_key[6] > 1 and warp_aux is not None:
+        raise ValueError("scene_render: texture sub-windows (tsplit > 1) do "
+                         "not combine with the warp branch")
     if warp_aux is not None:
         _check_warp_planes(warp_aux, bgaux, spec_key[-2], spec_key[-1])
+    kw = dict(spec_key=spec_key, use_aa=use_aa, bg_only=bg_only,
+              inverse_flow=inverse_flow, emit_masks=emit_masks)
     if slabs.device.type == "cpu":
         return scene_render_plain(
             bg_meta, omi, omf, tmi, tmf, bgm, edges, slabs, bgslabs,
-            worklist, n_units, warp_aux, bgaux, bg_band, spec_key=spec_key,
-            use_aa=use_aa, bg_only=bg_only,
-        )
+            worklist, n_units, warp_aux, bgaux, bg_band, **kw)
     if slabs.device.type != "cuda":
         raise ValueError(f"scene_render: unsupported device {slabs.device}")
     return _scene_render_cuda(
         bg_meta, omi, omf, tmi, tmf, bgm, edges, slabs, bgslabs, worklist,
-        n_units, warp_aux, bgaux, bg_band, spec_key, use_aa, bg_only,
-    )
+        n_units, warp_aux, bgaux, bg_band, **kw)
 
 
 def _check_warp_planes(warp_aux, bgaux, H, W):
@@ -374,11 +392,11 @@ scene_render.launches = 0
 
 
 def _scene_render_cuda(bg_meta, omi, omf, tmi, tmf, bgm, edges, slabs,
-                       bgslabs, worklist, n_units, warp_aux, bgaux, bg_band,
-                       spec_key, use_aa, bg_only):
+                       bgslabs, worklist, n_units, warp_aux, bgaux, bg_band, *,
+                       spec_key, use_aa, bg_only, inverse_flow, emit_masks):
     from ._build import load_scene_library
 
-    P, PBG, xs, ys, xsb, ysb, _, cwo, cwb, H, W = spec_key
+    P, PBG, xs, ys, xsb, ysb, tsplit, cwo, cwb, H, W = spec_key
     B, K = omi.shape[0], omi.shape[1]
     EP = edges.shape[-1]
     dev = slabs.device
@@ -422,8 +440,13 @@ def _scene_render_cuda(bg_meta, omi, omf, tmi, tmf, bgm, edges, slabs,
     Tb, SHb, SWb = bgslabs.shape
     if H % 8 or W % 128 or EP < 7 * 120:
         raise ValueError("scene_render: frame dims must be multiples of (8, 128)")
+    if tsplit not in (1, 2):
+        raise ValueError(f"scene_render: unsupported texture split {tsplit}")
     frames = torch.empty((B, 2, H, W), dtype=torch.int32, device=dev)
-    flow = torch.empty((B, 2, H, W), dtype=torch.float32, device=dev)
+    flow = torch.empty((B, 4 if inverse_flow else 2, H, W),
+                       dtype=torch.float32, device=dev)
+    ids = (torch.empty((B, 2, H, W), dtype=torch.int32, device=dev)
+           if emit_masks else None)
     lib = load_scene_library()
     ptr = lambda t: ctypes.c_void_p(0 if t is None else t.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -432,15 +455,17 @@ def _scene_render_cuda(bg_meta, omi, omf, tmi, tmf, bgm, edges, slabs,
         ptr(args["omi"]), ptr(args["omf"]), ptr(args["tmi"]),
         ptr(args["tmf"]), ptr(args["bgm"]), ptr(args["edges"]),
         ptr(args["slabs"]), ptr(args["bgslabs"]), ptr(warp_aux), ptr(bgaux),
-        ptr(bg_band), ptr(frames), ptr(flow),
+        ptr(bg_band), ptr(frames), ptr(flow), ptr(ids),
         B, K, EP, H, W, T, SHs, SWs, Tb, SHb, SWb, P, PBG,
-        min(cwo, SWs), min(cwb, SWb), xs, ys, xsb, ysb, int(has_warp),
-        int(bool(use_aa)), int(bool(bg_only)), ctypes.c_void_p(stream),
+        min(cwo, SWs), min(cwb, SWb), xs, ys, xsb, ysb, tsplit,
+        int(has_warp), int(bool(use_aa)), int(bool(bg_only)),
+        int(bool(inverse_flow)), int(bool(emit_masks)),
+        ctypes.c_void_p(stream),
     )
     if err != 0:
         raise RuntimeError(f"scene kernel launch failed: CUDA error {err}")
     scene_render.launches += 1
-    return frames, flow
+    return frames, flow, ids
 
 
 # ---------------------------------------------------------------------------
@@ -611,16 +636,18 @@ def _window_grid(y0, x0, wh, ww, dev):
 
 def scene_render_plain(bg_meta, omi, omf, tmi, tmf, bgm, edges, slabs,
                        bgslabs, worklist, n_units, warp_aux=None, bgaux=None,
-                       bg_band=None, *, spec_key, use_aa=True, bg_only=False):
+                       bg_band=None, *, spec_key, use_aa=True, bg_only=False,
+                       inverse_flow=False, emit_masks=False):
     """Plain PyTorch restatement of the scene kernel on any device: per
     sample, the background window tiles in static order, then each frame's
-    work units in painter's order on (wh, ww) windows with ownership masks.
-    Mode 9 (``warp_aux`` given) follows the JAX kernel's warp branch
-    literally: staged passes, expanded windows, banded taps. Same inputs and
-    outputs as :func:`scene_render`; the kernel's precomputed ``bg_band`` is
-    not read, as the staged passes find their bands themselves."""
+    work units in painter's order on (wh, ww) windows with ownership masks;
+    with ``tsplit`` > 1 a frame-1 texture is resampled over ``tsplit x
+    tsplit`` sub-windows, each folded at its own centre. Mode 9
+    (``warp_aux`` given) follows the JAX kernel's warp branch literally:
+    staged passes, expanded windows, banded taps. Same inputs and outputs as
+    :func:`scene_render`; the kernel's precomputed ``bg_band`` is not read,
+    as the staged passes find their bands themselves."""
     P, PBG, xs, ys, xsb, ysb, tsplit, cwo, cwb, H, W = spec_key
-    _check_branch(tsplit)
     has_warp = warp_aux is not None
     dev = slabs.device
     B, K = omi.shape[0], omi.shape[1]
@@ -631,7 +658,10 @@ def scene_render_plain(bg_meta, omi, omf, tmi, tmf, bgm, edges, slabs,
     tabs = [t.detach().cpu().numpy() for t in
             (bg_meta, omi, omf, tmi, tmf, bgm, worklist, n_units)]
     frames = torch.empty((B, 2, H, W), dtype=torch.int32, device=dev)
-    flow = torch.empty((B, 2, H, W), dtype=torch.float32, device=dev)
+    flow = torch.empty((B, 4 if inverse_flow else 2, H, W),
+                       dtype=torch.float32, device=dev)
+    ids = (torch.empty((B, 2, H, W), dtype=torch.int32, device=dev)
+           if emit_masks else None)
     pyF = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
     pxF = torch.arange(W, dtype=torch.float32, device=dev)[None, :].expand(H, W)
     py_w = torch.arange(wh, device=dev)[:, None]
@@ -692,10 +722,14 @@ def scene_render_plain(bg_meta, omi, omf, tmi, tmf, bgm, edges, slabs,
                     acc[y0s : y0s + wh, x0s : x0s + ww] = bg_window(
                         bgm_b, btid, frame, y0s, x0s)
             accs.append(acc)
+        planes = []
+        for base_m in (BGM_PIX, BGM_IPIX) if inverse_flow else (BGM_PIX,):
+            mq = [float(F32(v)) for v in bgm_b[base_m : base_m + 6]]
+            planes += [(mq[0] * pxF + mq[1] * pyF + mq[2]) - pxF,
+                       (mq[3] * pxF + mq[4] * pyF + mq[5]) - pyF]
+        flw = torch.stack(planes)
         m = [float(F32(v)) for v in bgm_b[BGM_PIX : BGM_PIX + 6]]
-        fx = (m[0] * pxF + m[1] * pyF + m[2]) - pxF
-        fy = (m[3] * pxF + m[4] * pyF + m[5]) - pyF
-        flw = torch.stack([fx, fy])
+        idb = torch.full((2, H, W), BG_ID, dtype=torch.int32, device=dev)
         if bg_warp:
             # Forward-field flow at the moved positions, x2 magnitude, where
             # they land inside the 2W x 2H big texture.
@@ -730,43 +764,56 @@ def scene_render_plain(bg_meta, omi, omf, tmi, tmf, bgm, edges, slabs,
                     ).to(torch.float32)
                     tid = int(om[OMI_TEX])
                     if frame == 1 and warping:
-                        mm, tex = _warp_unit(
+                        mm, tex, inw = _warp_unit(
                             er, om, of, slabs[tid], warp_aux[slot], y0, x0,
-                            own, use_aa, P, cwo, H, W, geo, dev)
+                            use_aa, P, cwo, H, W, geo, dev)
+                        mm, mi = mm * own, inw * own
                     else:
                         cov_aa, cov_in = _coverage_window(
                             er, om, of, y0, x0, wh, ww, dev
                         )
                         mm = (cov_aa if use_aa else cov_in) * own
+                        mi = cov_in * own
                         if frame == 0:
                             sy = (SLAB_MARGIN + y0) & ~7
                             sx = (SLAB_MARGIN + x0) & ~127
                             tex = resamp.unpack_rgb(
                                 slabs[tid, sy : sy + wh, sx : sx + ww]
                             )
-                        else:
+                        elif tsplit == 1:
                             tex = resamp.two_pass_window(
                                 slabs[tid], tmf_b[k, 1, t, :6], x0, y0, wh,
                                 ww, P, cwo,
                             )
+                        else:
+                            tex = _split_texture(slabs[tid], of, x0, y0, wh,
+                                                 ww, tsplit, P, cwo, dev)
                     win = acc[y0 : y0 + wh, x0 : x0 + ww]
                     out = [
                         torch.round(f * (1.0 - mm) + tc * mm)
                         for f, tc in zip(resamp.unpack_rgb(win), tex)
                     ]
                     acc[y0 : y0 + wh, x0 : x0 + ww] = _pack3(*out)
-                    if frame == 0:
-                        mi = cov_in * own
+                    if emit_masks:
+                        # The painter's id image: the object's slot where
+                        # the binary mask times ownership is 1.
+                        mid = mi.to(torch.int32)
+                        old = idb[frame, y0 : y0 + wh, x0 : x0 + ww]
+                        idb[frame, y0 : y0 + wh, x0 : x0 + ww] = (
+                            (FG_ID_BASE + k) * mid + old * (1 - mid))
+                    if frame == 0 or inverse_flow:
+                        # Frame 1's OMF_MOTION is the inverse motion.
+                        fi = 2 * frame
                         pxw, pyw = _window_grid(y0, x0, wh, ww, dev)
                         mo = [float(F32(v)) for v in of[OMF_MOTION : OMF_MOTION + 6]]
                         mvx = mo[0] * pxw + mo[1] * pyw + mo[2]
                         mvy = mo[3] * pxw + mo[4] * pyw + mo[5]
                         ofl = (mvx - pxw, mvy - pyw)
                         for ch in (0, 1):
-                            w_ = flw[ch, y0 : y0 + wh, x0 : x0 + ww]
-                            flw[ch, y0 : y0 + wh, x0 : x0 + ww] = (
+                            w_ = flw[fi + ch, y0 : y0 + wh, x0 : x0 + ww]
+                            flw[fi + ch, y0 : y0 + wh, x0 : x0 + ww] = (
                                 ofl[ch] * mi + w_ * (1.0 - mi))
-                        if warping:
+                        if frame == 0 and warping:
                             # + forward field at the moved positions, inside
                             # the frame, under the same mask.
                             inb = ((mvx >= 0) & (mvx < W) & (mvy >= 0)
@@ -781,16 +828,42 @@ def scene_render_plain(bg_meta, omi, omf, tmi, tmf, bgm, edges, slabs,
         frames[b, 0] = accs[0]
         frames[b, 1] = accs[1]
         flow[b] = flw
-    return frames, flow
+        if emit_masks:
+            ids[b] = idb
+    return frames, flow, ids
 
 
-def _warp_unit(er, om, of, slab, aux, y0, x0, own, use_aa, P, cwo, H, W, geo,
-               dev):
+def _split_texture(slab, of, x0, y0, wh, ww, tsplit, P, cwo, dev):
+    """Frame-1 texture of a unit over ``tsplit x tsplit`` sub-windows (the
+    JAX kernel's ``tex_dma_f1`` with ``tsplit > 1``): each sub-window folds
+    the raw residual affine (OMF_RAW) at its own centre with the source's
+    reflect periods (OMF_RAW + 6, + 7) and is resampled on its own. Returns
+    the three (wh, ww) planes."""
+    whs, wws = wh // tsplit, ww // tsplit
+    raw = of[OMF_RAW : OMF_RAW + 6]
+    planes = [torch.empty((wh, ww), dtype=torch.float32, device=dev)
+              for _ in range(3)]
+    for sy in range(tsplit):
+        for sx in range(tsplit):
+            oy, ox = y0 + sy * whs, x0 + sx * wws
+            coeffs = resamp.fold_coeffs_scalar(
+                raw, ox + wws / 2.0, oy + whs / 2.0, of[OMF_RAW + 6],
+                of[OMF_RAW + 7], float(SLAB_MARGIN),
+            )
+            sub = resamp.two_pass_window(slab, coeffs, ox, oy, whs, wws, P,
+                                         cwo)
+            for pl_, s_ in zip(planes, sub):
+                pl_[sy * whs : sy * whs + whs, sx * wws : sx * wws + wws] = s_
+    return planes
+
+
+def _warp_unit(er, om, of, slab, aux, y0, x0, use_aa, P, cwo, H, W, geo, dev):
     """Frame 1 of a deforming object's unit (the JAX kernel's warping
     branch): coverage and the affine-resampled texture on the expanded
     window, each texture sub-tile folded at its own centre and rounded to
     u8, then all three displaced through the unit's inverse-field planes.
-    Returns the blend mask and the texture planes of the (wh, ww) window."""
+    Returns the blend mask, the texture planes and the warped binary mask
+    of the (wh, ww) window, before ownership."""
     wh, ww = min(WIN_H, H), min(WIN_W, W)
     whE, wwE = geo["whE"], geo["wwE"]
     ey0 = min(max(y0 - WARP_EY, 0), H - whE) & ~7
@@ -816,10 +889,8 @@ def _warp_unit(er, om, of, slab, aux, y0, x0, own, use_aa, P, cwo, H, W, geo,
         return resamp.displace_warp(src, gd, vd, x0, y0, ex0, ey0, wh, ww,
                                     whE, wwE)
 
-    if use_aa:
-        m = disp(cov_aa)
-    else:
-        m = (disp(cov_in) >= f32(IN_THR)).to(torch.float32)
+    inw = (disp(cov_in) >= f32(IN_THR)).to(torch.float32)
+    m = disp(cov_aa) if use_aa else inw
     tex = resamp.displace_warp_rgb(texE, gd, vd, x0, y0, ex0, ey0, wh, ww,
                                    whE, wwE, geo["rgb_lanes"])
-    return m * own, tex
+    return m, tex, inw

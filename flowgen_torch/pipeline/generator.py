@@ -22,7 +22,7 @@ import torch
 from .. import texture_io
 from ..compose.fused import check_slice, render_batch_fused
 from ..config import DataGenConfig
-from ..ops.scene import prepare_bg_slabs, prepare_slabs
+from ..ops.scene import prepare_bg_slabs, prepare_slabs, quadrant_needed
 from ..params.sampler import sample_scene_batch
 from ..random.streams import root_key
 from ..warpfields import generator as warpgen
@@ -74,8 +74,10 @@ def _as_u8(atlas) -> torch.Tensor:
 
 
 def make_slab_packer(cfg: DataGenConfig, device):
-    """Cache of the packed texture slabs (object crops and full background
-    sources), built once per distinct atlas object."""
+    """Cache of the packed texture slabs (object crops, with their rot90
+    copies in the quadrant modes 11 and 13, and full background sources),
+    built once per distinct atlas object."""
+    quadrant = quadrant_needed(cfg.mode_spec)
     cache = {}
 
     def slabs(atlas):
@@ -83,7 +85,7 @@ def make_slab_packer(cfg: DataGenConfig, device):
             a = _as_u8(atlas).to(device)
             cache["id"] = id(atlas)
             cache["val"] = (
-                prepare_slabs(a, cfg.height, cfg.width),
+                prepare_slabs(a, cfg.height, cfg.width, quadrant=quadrant),
                 prepare_bg_slabs(a),
                 (a.shape[1], a.shape[2]),
             )
@@ -121,9 +123,13 @@ def generate_batch(root, step, atlas, cfg: DataGenConfig, base_index=None,
         if warp_aux is None:
             _, warp_aux = warpgen.make_bank_and_aux(root, step, cfg)
     scenes = sample_scene_batch(root, indices, cfg, n_warp_slots=n_slots)
-    i0, i1, f0 = render_batch_fused(scenes, obj_slabs, bg_slabs, src_hw, cfg,
-                                    warp_aux=warp_aux)
-    return _adapt_output(i0, i1, f0, None, cfg)
+    rendered = list(render_batch_fused(scenes, obj_slabs, bg_slabs, src_hw,
+                                       cfg, warp_aux=warp_aux))
+    i0, i1, f0 = rendered[:3]
+    rest = rendered[3:]
+    f1 = rest.pop(0) if cfg.compute_inverse_flow else None
+    masks = tuple(rest) if cfg.emit_masks else None
+    return _adapt_output(i0, i1, f0, f1, cfg, masks)
 
 
 def _same_root(a, b) -> bool:

@@ -40,10 +40,10 @@ def procedural_atlas(
 
 def atlas_for_config(cfg: DataGenConfig):
     """The procedural bank at the config's frame size. Texture databases on
-    disk are not ported yet (ROADMAP.md, port queue item 3)."""
+    disk are not ported yet (ROADMAP.md, port queue item 2)."""
     if cfg.texture_dbases:
         raise NotImplementedError(
             "texture_dbases / TextureDB is not ported yet "
-            "(ROADMAP.md, port queue item 3: the TextureDB path)"
+            "(ROADMAP.md, port queue item 2: the TextureDB path)"
         )
     return procedural_atlas(height=cfg.height, width=cfg.width)

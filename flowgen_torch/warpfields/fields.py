@@ -186,7 +186,7 @@ def self_compose(field, iters: int = COMPOSE_ITERS):
     """The ``warp_bank_impl="xla"`` content stream (quad-gather doublings)."""
     raise NotImplementedError(
         "warp_bank_impl='xla' (fields.self_compose) is not ported yet "
-        "(ROADMAP.md, port queue item 4)"
+        "(ROADMAP.md, port queue item 3)"
     )
 
 
@@ -194,5 +194,5 @@ def make_big_field(key, size: int, coarse_iters: int = 16):
     """The ``warp_bank_impl="xla"`` big field (``fields.make_big_field``)."""
     raise NotImplementedError(
         "warp_bank_impl='xla' (fields.make_big_field) is not ported yet "
-        "(ROADMAP.md, port queue item 4)"
+        "(ROADMAP.md, port queue item 3)"
     )

@@ -34,7 +34,7 @@ def _xla_not_ported():
     return NotImplementedError(
         "warp_bank_impl='xla' (fields.self_compose, fields.make_big_field, "
         "generator._gdisp_xla) is not ported yet (ROADMAP.md, port queue "
-        "item 4)"
+        "item 3)"
     )
 
 

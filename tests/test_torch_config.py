@@ -116,10 +116,6 @@ def test_generator_without_device_raises_without_card():
 
 @pytest.mark.parametrize("kw", [
     dict(mode=9, warp_bank_impl="xla"),
-    dict(mode=11),
-    dict(mode=13),
-    dict(mode=7, compute_inverse_flow=True),
-    dict(mode=7, emit_masks=True),
     dict(mode=7, photometric_augment=True),
     dict(mode=7, render_impl="windowed"),
     dict(mode=7, texture_dbases=("list.txt",)),
@@ -130,6 +126,44 @@ def test_out_of_slice_configs_raise(kw):
     cfg = flowgen_torch.DataGenConfig(batch_size=1, width=128, height=96, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         generate_batch(0, 0, None, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("kw,tsplit", [
+    (dict(mode=11), 1),
+    (dict(mode=13), 1),
+    (dict(mode=11, width=256), 2),
+    (dict(mode=13, width=256, compute_inverse_flow=True, emit_masks=True), 2),
+    (dict(mode=7, compute_inverse_flow=True), 1),
+    (dict(mode=7, emit_masks=True, layout="nchw"), 1),
+])
+def test_slice_configs_render(kw, tsplit):
+    """Configurations the slice now covers pass check_slice and give the
+    JAX package's output keys, shapes and types."""
+    from flowgen_torch.compose.fused import check_slice
+    from flowgen_torch.ops.scene import resample_params
+    from flowgen_torch.pipeline.generator import generate_batch
+
+    cfg = flowgen_torch.DataGenConfig(**{"batch_size": 1, "width": 128,
+                                         "height": 96, **kw})
+    check_slice(cfg)
+    assert resample_params(cfg.mode_spec, 96, cfg.width)[6] == tsplit
+    atlas = flowgen_torch.procedural_atlas(2, height=96, width=cfg.width)
+    out = generate_batch(0, 0, atlas, cfg, device="cpu")
+    want = {"image0", "image1", "flow0"}
+    if cfg.compute_inverse_flow:
+        want.add("flow1")
+    if cfg.emit_masks:
+        want |= {"occlusion", "motion_boundary"}
+    assert set(out) == want
+    nchw = cfg.layout == "nchw"
+    for k in want:
+        v = out[k]
+        if k in ("occlusion", "motion_boundary"):
+            assert v.shape == (1, 96, cfg.width) and v.dtype == torch.bool
+        else:
+            c = 3 if k.startswith("image") else 2
+            shape = (1, c, 96, cfg.width) if nchw else (1, 96, cfg.width, c)
+            assert v.shape == shape and bool(torch.isfinite(v).all())
 
 
 def test_texture_db_atlas_raises():

@@ -31,8 +31,8 @@ def _tables(cfg, seed, dev):
     obj, bg, src = make_slab_packer(cfg, dev)(atlas)
     scenes = sample_scene_batch(root_key(seed, dev),
                                 torch.arange(cfg.batch_size, device=dev), cfg)
-    args, key, _ = fused.scene_tables(scenes, cfg, obj, bg, src)
-    return args, key
+    args, opts = fused.scene_tables(scenes, cfg, obj, bg, src)
+    return args, opts
 
 
 @pytest.mark.parametrize("mode,width,height,batch", [
@@ -42,28 +42,61 @@ def test_scene_kernel_matches_plain(mode, width, height, batch):
     _need_card()
     cfg = flowgen_torch.DataGenConfig(mode=mode, batch_size=batch,
                                       width=width, height=height)
-    args, key = _tables(cfg, 3, torch.device("cuda"))
+    args, opts = _tables(cfg, 3, torch.device("cuda"))
     before = ps.scene_render.launches
-    kf, kl = ps.scene_render(*args, spec_key=key)
+    kf, kl, _ = ps.scene_render(*args, **opts)
     torch.cuda.synchronize()
     assert ps.scene_render.launches == before + 1
-    pf, pl = ps.scene_render_plain(*args, spec_key=key)
+    pf, pl, _ = ps.scene_render_plain(*args, **opts)
     assert (kf != pf).float().mean().item() < 1e-4
     d = (kl - pl).abs()
     assert d.flatten().median().item() < 1e-4
     assert (d > 0.01).float().mean().item() < 1e-3
 
 
-def test_generate_batch_cuda_matches_cpu():
+@pytest.mark.parametrize("mode,width,height,batch,tsplit", [
+    (11, 128, 96, 2, 1), (13, 256, 96, 1, 2), (11, 512, 384, 1, 2),
+    (13, 512, 384, 1, 2),
+])
+def test_quadrant_scene_kernel_matches_plain(mode, width, height, batch,
+                                             tsplit):
+    """Quadrant slabs, the frame-1 sub-windows, inverse flow and ids: the
+    kernel equals its plain version bit for bit."""
     _need_card()
-    cfg = flowgen_torch.DataGenConfig(mode=7, batch_size=2, width=128, height=96)
-    atlas = flowgen_torch.procedural_atlas(4, height=96, width=128)
+    cfg = flowgen_torch.DataGenConfig(
+        mode=mode, batch_size=batch, width=width, height=height,
+        compute_inverse_flow=True, emit_masks=True)
+    args, opts = _tables(cfg, 3, torch.device("cuda"))
+    assert opts["spec_key"][6] == tsplit
+    assert args[7].shape[0] == 8          # rot90 copies of 4 textures
+    kf, kl, ki = ps.scene_render(*args, **opts)
+    torch.cuda.synchronize()
+    pf, pl, pi = ps.scene_render_plain(*args, **opts)
+    assert kl.shape[1] == 4 and ki is not None
+    assert torch.equal(kf, pf)
+    assert torch.equal(kl, pl)
+    assert torch.equal(ki, pi)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(mode=7), dict(mode=13, width=256, compute_inverse_flow=True,
+                       emit_masks=True),
+])
+def test_generate_batch_cuda_matches_cpu(kw):
+    _need_card()
+    cfg = flowgen_torch.DataGenConfig(**{"batch_size": 2, "width": 128,
+                                         "height": 96, **kw})
+    atlas = flowgen_torch.procedural_atlas(4, height=96, width=cfg.width)
     g = generate_batch(0, 0, atlas, cfg, device="cuda")
     c = generate_batch(0, 0, atlas, cfg, device="cpu")
+    assert set(g) == set(c)
     for k in ("image0", "image1"):
         assert (g[k].cpu() - c[k]).abs().ge(1).float().mean().item() < 0.01
-    d = (g["flow0"].cpu() - c["flow0"]).abs()
-    assert d.flatten().median().item() < 1e-4
+    for k in [k for k in ("flow0", "flow1") if k in c]:
+        d = (g[k].cpu() - c[k]).abs()
+        assert d.flatten().median().item() < 1e-4
+    for k in [k for k in ("occlusion", "motion_boundary") if k in c]:
+        assert (g[k].cpu() != c[k]).float().mean().item() < 1e-4
 
 
 def _smooth_fields(m, s, mag, dev):
@@ -130,8 +163,8 @@ def _mode9_tables(cfg, dev):
     else:
         raise AssertionError("no seed with a deforming object and background")
     _, aux = make_bank_and_aux(root_key(0, dev), 0, cfg)
-    args, key, _ = fused.scene_tables(scenes, cfg, obj, bg, src, aux)
-    return args, key
+    args, opts = fused.scene_tables(scenes, cfg, obj, bg, src, aux)
+    return args, opts
 
 
 @pytest.mark.parametrize("width,height,batch", [(128, 96, 2), (512, 384, 1)])
@@ -139,9 +172,26 @@ def test_mode9_scene_kernel_matches_plain(width, height, batch):
     _need_card()
     cfg = flowgen_torch.DataGenConfig(mode=9, batch_size=batch, width=width,
                                       height=height)
-    args, key = _mode9_tables(cfg, torch.device("cuda"))
-    kf, kl = ps.scene_render(*args, spec_key=key)
+    args, opts = _mode9_tables(cfg, torch.device("cuda"))
+    kf, kl, _ = ps.scene_render(*args, **opts)
     torch.cuda.synchronize()
-    pf, pl = ps.scene_render_plain(*args, spec_key=key)
+    pf, pl, _ = ps.scene_render_plain(*args, **opts)
     assert torch.equal(kf, pf)
     assert torch.equal(kl, pl)
+
+
+def test_mode9_inverse_flow_and_ids_match_plain():
+    """The warp branch's inverse flow (under the warped binary mask) and
+    ids: the kernel equals its plain version bit for bit."""
+    _need_card()
+    cfg = flowgen_torch.DataGenConfig(mode=9, batch_size=2, width=128,
+                                      height=96, compute_inverse_flow=True,
+                                      emit_masks=True)
+    args, opts = _mode9_tables(cfg, torch.device("cuda"))
+    kf, kl, ki = ps.scene_render(*args, **opts)
+    torch.cuda.synchronize()
+    pf, pl, pi = ps.scene_render_plain(*args, **opts)
+    assert kl.shape[1] == 4
+    assert torch.equal(kf, pf)
+    assert torch.equal(kl, pl)
+    assert torch.equal(ki, pi)
