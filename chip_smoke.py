@@ -48,8 +48,27 @@ Phases (any failure exits non-zero before the final line):
      and numbers as phase 3 (flow1 and the masks included; samples 0-3 of
      step 0 against the plain render of phase 9, masks from its ids), with
      the masks on their own layer line;
- 11. mode 13, the scene kernel's timing at B=64 as in phase 4; then one JSON
-     line {"kernels": [...]}, and last the line {"ok": true, "device": {...}}.
+ 11. mode 13, the scene kernel's timing at B=64 as in phase 4;
+ 12. the windowed renderer at MPI-Sintel's 1024x436 (frames not a multiple
+     of (8, 128)): the mode-9 crop bank (3072^2 big fields) through the
+     bank kernels against their plain versions; renders of B=4 through the
+     window kernels (object_window, polygon_coverage) against their plain
+     versions, in mode 7, mode 7 with flow1 and masks, and mode 9 on
+     samples with a deforming object and background (the gates above, max
+     difference 0 expected); at 512x384, per-object windows against
+     full-frame windows and the windowed forward flow against the scene
+     kernel's, bit for bit;
+ 13. the windowed mode-7 main path: Generator(DataGenConfig(mode=7,
+     height=436, width=1024, batch_size=64, seed=0)), the checks and numbers
+     of phase 3 (samples 0-3 of step 0 against the plain render of phase
+     12), launches per step, and layers (sampler, background pass, object
+     loop, adapt);
+ 14. the same for mode 9 (3 timed steps), with a bank-producer layer;
+ 15. object_window (both window classes) and polygon_coverage at the main
+     paths' shapes, and the standalone affine_resample on a 192x256 window
+     of a 512x384 texture's slab: CUDA events, the plain versions once, the
+     bound; then one JSON line {"kernels": [...]} with six rows, and last
+     the line {"ok": true, "device": {...}}.
 
 It needs the repository (it imports flowgen_torch from its own directory),
 a CUDA card and nvcc. It imports nothing of JAX or of the JAX package.
@@ -57,6 +76,7 @@ a CUDA card and nvcc. It imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import re
@@ -81,6 +101,23 @@ OPS_EDGE_PIXEL = 45
 OPS_ELLIPSE_PIXEL = 190
 
 
+@functools.lru_cache(maxsize=None)
+def procedural_atlas(height: int, width: int):
+    """The configuration's procedural atlas (``atlas_for_config``), built
+    once per frame size: phases of one size share it."""
+    import flowgen_torch
+
+    return flowgen_torch.atlas_for_config(
+        flowgen_torch.DataGenConfig(height=height, width=width))
+
+
+_T0 = time.perf_counter()
+
+
+def stamp(label: str):
+    print(f"[{time.perf_counter() - _T0:.1f} s] {label}", flush=True)
+
+
 def fail(msg: str):
     print(f"FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
@@ -103,12 +140,20 @@ def ptxas_summary(log: str):
 
 
 def kernel_counters():
+    from flowgen_torch.ops import resample, window
     from flowgen_torch.ops import scene as ps
     from flowgen_torch.warpfields import compose
 
     return {"scene_render": ps.scene_render,
             "coarse_gdisp": compose.coarse_solve,
-            "hwarp_rows": compose.hwarp_rows}
+            "hwarp_rows": compose.hwarp_rows,
+            "object_window": window.object_window,
+            "polygon_coverage": window.polygon_coverage,
+            "affine_resample": resample.affine_resample}
+
+
+FUSED_KERNELS = ("scene_render", "coarse_gdisp", "hwarp_rows")
+WINDOW_KERNELS = ("object_window", "polygon_coverage")
 
 
 def reset_counts():
@@ -427,7 +472,7 @@ def run_main_path(cfg, atlas, card, n_steps=5, prof_steps=3):
     """Drive ``Generator`` with every kernel count at 0 before: 2 warm-up
     and ``n_steps`` timed steps, then ``prof_steps`` profiled ones. Returns
     the first batch, the last batch and the numbers."""
-    from flowgen_torch.pipeline.generator import Generator
+    from flowgen_torch.pipeline.generator import Generator, use_fused_path
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -446,6 +491,7 @@ def run_main_path(cfg, atlas, card, n_steps=5, prof_steps=3):
     dispatched = gen.step
     gen.stop()
     res = {
+        "launches_per_step": {k: v / dispatched for k, v in counts.items()},
         "ms_per_step": 1e3 * dt / n_steps,
         "samples_per_s": cfg.batch_size * n_steps / dt,
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -479,9 +525,16 @@ def run_main_path(cfg, atlas, card, n_steps=5, prof_steps=3):
         print(f"{k} share (mode {cfg.mode}, last step): {share:.4f}")
         if not 0.0 < share < 1.0:
             fail(f"{k} is constant")
-    if counts["scene_render"] != dispatched:
-        fail(f"scene kernel launches {counts['scene_render']} != steps "
-             f"dispatched {dispatched}")
+    if counts["affine_resample"]:
+        fail("a main path launched the standalone affine_resample")
+    if use_fused_path(cfg, "cuda"):
+        if counts["scene_render"] != dispatched:
+            fail(f"scene kernel launches {counts['scene_render']} != steps "
+                 f"dispatched {dispatched}")
+        if any(counts[k] for k in WINDOW_KERNELS):
+            fail(f"the fused path launched window kernels: {counts}")
+    elif counts["scene_render"] or not counts["object_window"]:
+        fail(f"the windowed path's kernel launches are off: {counts}")
     label = f"mode {cfg.mode}, B={B}, {W}x{H}"
     print(f"main path ({label}): {res['ms_per_step']:.2f} ms/step, "
           f"{res['samples_per_s']:.1f} samples/s over {n_steps} timed steps, "
@@ -504,7 +557,7 @@ def phase_mode7(card, dev):
     from flowgen_torch.pipeline.generator import make_slab_packer
 
     cfg4 = flowgen_torch.DataGenConfig(mode=7, batch_size=4, seed=0)
-    atlas = flowgen_torch.atlas_for_config(cfg4)
+    atlas = procedural_atlas(cfg4.height, cfg4.width)
     slabs = make_slab_packer(cfg4, dev)(atlas)
 
     # ---- 2: kernel vs plain at 512x384, B=4 ----
@@ -761,7 +814,8 @@ def phase_quadrant(card, dev):
         cfg4 = flowgen_torch.DataGenConfig(
             mode=mode, batch_size=4, seed=0, compute_inverse_flow=True,
             emit_masks=True)
-        slabs = make_slab_packer(cfg4, dev)(flowgen_torch.atlas_for_config(cfg4))
+        slabs = make_slab_packer(cfg4, dev)(procedural_atlas(cfg4.height,
+                                                             cfg4.width))
         args, opts = scene_tables(cfg4, 0, 0, slabs, dev)
         n_rot = int((args[1][:, :, 1, ps.OMI_TEX] >= slabs[0].shape[0] // 2
                      ).sum())
@@ -790,7 +844,7 @@ def phase_mode13(card, dev):
     cfg = flowgen_torch.DataGenConfig(mode=13, batch_size=64, seed=0,
                                       compute_inverse_flow=True,
                                       emit_masks=True)
-    atlas = flowgen_torch.atlas_for_config(cfg)
+    atlas = procedural_atlas(cfg.height, cfg.width)
 
     # ---- 10: the main path ----
     first, res = run_main_path(cfg, atlas, card)
@@ -829,6 +883,501 @@ def phase_mode13(card, dev):
             "max_abs_err": max(worst, g["max_abs_err"], g64["max_abs_err"])}
 
 
+# ---------------------------------------------------------------------------
+# The windowed renderer (phases 12-15)
+# ---------------------------------------------------------------------------
+
+SINTEL_HW = (436, 1024)   # MPI-Sintel's frame (height, width)
+# Bytes a window pixel moves through object_window (texture, frame and flow
+# read; frame and flow written) and a sample point through polygon_coverage
+# (its two coordinates read; coverage and mask written).
+OBJECT_WINDOW_PIXEL_BYTES = 52
+POLYGON_POINT_BYTES = 16
+
+
+def sintel_cfg(**kw):
+    import flowgen_torch
+
+    H, W = SINTEL_HW
+    return flowgen_torch.DataGenConfig(**{"batch_size": 64, "height": H,
+                                          "width": W, "seed": 0, **kw})
+
+
+def as_windowed(out, cfg):
+    """The windowed renderer's (image0, image1, flow0[, flow1][, ids]) as a
+    dict of the main path's outputs, ids and masks included."""
+    from flowgen_torch.compose.fused import masks_from_ids
+
+    out = list(out)
+    d = {"image0": out[0], "image1": out[1], "flow0": out[2]}
+    if cfg.compute_inverse_flow:
+        d["flow1"] = out[3]
+    if cfg.emit_masks:
+        d["ids"] = out[-1]
+        d["occlusion"], d["motion_boundary"] = masks_from_ids(
+            out[-1], out[2][..., 0], out[2][..., 1])
+    return d
+
+
+def windowed_samples(cfg, dev, n=4):
+    """Scenes of ``n`` consecutive samples of the main path's step 0; in
+    mode 9 the first four that hold a deforming object and a deforming
+    background. Returns (first index, scenes)."""
+    from flowgen_torch.warpfields import generator as wg
+
+    warp = cfg.mode_spec.warp_p > 0.0
+    n_slots = wg.bank_size(cfg) if warp else 1
+    for s in range(0, cfg.batch_size, n):
+        scenes = sample(cfg, cfg.seed, s + torch.arange(n), dev, n_slots)
+        if not warp or (
+                int((scenes.objects.warp & scenes.objects.valid).sum()) >= 1
+                and int(scenes.background.warp.sum()) >= 1):
+            return s, scenes
+    fail("no samples of step 0 hold a deforming object and background")
+
+
+def phase_sintel_bank(cfg, dev):
+    """Phase 12a: the crop bank of the mode-9 Sintel configuration (3072^2
+    big fields) through the bank kernels against the same through their
+    plain versions. Returns the kernels' bank and the largest difference."""
+    from flowgen_torch.random.streams import root_key
+    from flowgen_torch.warpfields import compose
+    from flowgen_torch.warpfields import generator as wg
+
+    root = root_key(cfg.seed, dev)
+    ms_k, bk = host_ms(lambda: wg.make_warp_bank(root, 0, cfg))
+    with compose.plain_versions():
+        ms_p, bp = host_ms(lambda: wg.make_warp_bank(root, 0, cfg))
+    res = {name: field_gate(a, b) for name, a, b in (
+        ("flow", bk.flow, bp.flow), ("iflow", bk.iflow, bp.iflow))}
+    worst = max(r["max_abs_err"] for r in res.values())
+    big = wg.big_field_size(cfg.width, cfg.height)
+    print(f"make_warp_bank kernels vs plain ({cfg.width}x{cfg.height}, "
+          f"{cfg.warp_fields_per_batch} big fields of {big}^2, "
+          f"{wg.bank_size(cfg)} crops): " + json.dumps(res, sort_keys=True)
+          + f"; kernels {ms_k:.1f} ms, plain versions {ms_p:.1f} ms (host "
+          "clock, synchronized)")
+    if not all(r["ok"] for r in res.values()):
+        fail("the Sintel-size bank through the kernels fails the bank gate")
+    del bp
+    return bk, worst
+
+
+def phase_windowed_vs_plain(atlas_q, bank9, dev):
+    """Phase 12b: the windowed renderer at 1024x436, B=4, through the
+    window kernels against the same through their plain versions (mode 7;
+    mode 7 with flow1 and masks; mode 9 on samples with a deforming object
+    and background). Returns the plain renders and the worst difference."""
+    import dataclasses
+
+    from flowgen_torch.compose.render import render_batch
+    from flowgen_torch.ops import window
+
+    plains, worst = {}, 0.0
+    for label, kw in (("mode 7", dict(mode=7)),
+                      ("mode 7 with flow1 and masks",
+                       dict(mode=7, compute_inverse_flow=True,
+                            emit_masks=True)),
+                      ("mode 9", dict(mode=9))):
+        cfg = sintel_cfg(**kw)
+        cfg4 = dataclasses.replace(cfg, batch_size=4)
+        bank = bank9 if cfg.mode == 9 else None
+        s0, scenes = windowed_samples(cfg, dev)
+        before = {k: fn.launches for k, fn in kernel_counters().items()}
+        k_out = as_windowed(render_batch(scenes, atlas_q, cfg4, bank), cfg4)
+        torch.cuda.synchronize()
+        launched = {k: fn.launches - before[k]
+                    for k, fn in kernel_counters().items()}
+        with window.plain_versions():
+            p_out = as_windowed(render_batch(scenes, atlas_q, cfg4, bank), cfg4)
+        cmp = gates(k_out, p_out)
+        print(f"windowed {label} kernels vs plain (samples {s0}-{s0 + 3}, "
+              f"{cfg.width}x{cfg.height}, launches {json.dumps(launched)}): "
+              + json.dumps(cmp, sort_keys=True))
+        if not cmp["ok"]:
+            fail(f"windowed {label}: kernels vs plain gates failed")
+        if not launched["object_window"] and not launched["polygon_coverage"]:
+            fail(f"windowed {label}: no window kernel launched")
+        worst = max(worst, cmp["max_abs_err"])
+        plains[label] = (s0, p_out)
+    return plains, worst
+
+
+def phase_windowed_invariants(dev):
+    """Phase 12c, at 512x384, B=4, mode 7 with inverse flow: per-object
+    windows against full-frame windows (bit for bit), and the forward flow
+    of the windowed renderer against the scene kernel's (bit for bit)."""
+    import dataclasses
+
+    import flowgen_torch
+    from flowgen_torch.pipeline.generator import generate_batch
+
+    atlas = flowgen_torch.procedural_atlas(4, height=384, width=512)
+    cfg = flowgen_torch.DataGenConfig(mode=7, batch_size=4, seed=0,
+                                      render_impl="windowed",
+                                      compute_inverse_flow=True)
+    win = generate_batch(0, 0, atlas, cfg, device="cuda")
+    full = generate_batch(0, 0, atlas, dataclasses.replace(cfg, windowed=False),
+                          device="cuda")
+    fused = generate_batch(0, 0, atlas,
+                           dataclasses.replace(cfg, render_impl="fused"),
+                           device="cuda")
+    diff = {k: float((win[k] - full[k]).abs().max()) for k in win}
+    d0 = float((win["flow0"] - fused["flow0"]).abs().max())
+    print("windowed vs full-frame windows (mode 7, 512x384, B=4, max |d| per "
+          f"output): {json.dumps(diff)}; windowed vs fused flow0 max |d| {d0}")
+    if any(diff.values()) or d0 != 0.0:
+        fail("windowed evaluation is not invariant")
+
+
+def layer_breakdown_windowed(cfg, atlas_q, dev, steps: int = 3):
+    """Host-clock time of each layer of one windowed main-path step, each
+    ended by a device synchronize, averaged over ``steps`` steps: bank
+    producer (mode 9: each epoch's make_warp_bank, per step), sampler,
+    background pass, object loop (render_batch less a background_pass of
+    the same scenes), masks and output adapter."""
+    from flowgen_torch.compose.fused import masks_from_ids
+    from flowgen_torch.compose.render import background_pass, render_batch
+    from flowgen_torch.pipeline.generator import _adapt_output
+    from flowgen_torch.random.streams import root_key
+    from flowgen_torch.warpfields import generator as wg
+
+    warp = cfg.mode_spec.warp_p > 0.0
+    acc = {"bank_producer": 0.0} if warp else {}
+    acc.update({"sampler": 0.0, "background_pass": 0.0, "object_loop": 0.0})
+    if cfg.emit_masks:
+        acc["masks"] = 0.0
+    acc["adapt"] = 0.0
+    root = root_key(cfg.seed, dev)
+    n_slots = wg.bank_size(cfg) if warp else 1
+    reuse = max(cfg.warp_bank_reuse_steps, 1)
+
+    def tick(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    bank = None
+    for step in range(steps):
+        torch.cuda.synchronize()
+        if warp:
+            t0 = time.perf_counter()
+            bank = wg.make_warp_bank(root, step * reuse, cfg)
+            acc["bank_producer"] += tick(t0) / reuse
+        t0 = time.perf_counter()
+        idx = step * cfg.batch_size + torch.arange(cfg.batch_size, device=dev)
+        scenes = sample(cfg, cfg.seed, idx, dev, n_slots)
+        acc["sampler"] += tick(t0)
+        t0 = time.perf_counter()
+        background_pass(scenes, atlas_q, cfg, bank)
+        t_bg = tick(t0)
+        acc["background_pass"] += t_bg
+        t0 = time.perf_counter()
+        out = list(render_batch(scenes, atlas_q, cfg, bank))
+        acc["object_loop"] += tick(t0) - t_bg
+        masks = None
+        if cfg.emit_masks:
+            t0 = time.perf_counter()
+            masks = masks_from_ids(out.pop(), out[2][..., 0], out[2][..., 1])
+            acc["masks"] += tick(t0)
+        t0 = time.perf_counter()
+        _adapt_output(out[0], out[1], out[2],
+                      out[3] if cfg.compute_inverse_flow else None, cfg, masks)
+        acc["adapt"] += tick(t0)
+    return {k: 1e3 * v / steps for k, v in acc.items()}
+
+
+def phase_windowed_main(cfg, atlas, atlas_q, plain, card, dev, n_steps=5,
+                        prof_steps=3):
+    """Phases 13 and 14: the windowed main path at 1024x436, B=64, its
+    checks against the plain render of phase 12 and its layers."""
+    first, res = run_main_path(cfg, atlas, card, n_steps, prof_steps)
+    s0, p_out = plain
+    keys = [k for k in first if k in p_out]
+    g = gates({k: first[k][s0 : s0 + 4] for k in keys}, p_out)
+    print(f"windowed mode {cfg.mode} main path step 0 vs plain (samples "
+          f"{s0}-{s0 + 3}): " + json.dumps(g, sort_keys=True))
+    if not g["ok"]:
+        fail(f"windowed mode {cfg.mode} main path disagrees with the plain "
+             "render")
+    del first
+    print(f"windowed mode {cfg.mode} launches per step: "
+          + json.dumps({k: round(v, 3) for k, v in
+                        res["launches_per_step"].items()})
+          + "; one device-to-host read of the window plan per step")
+    layers = layer_breakdown_windowed(cfg, atlas_q, dev)
+    print(f"windowed mode {cfg.mode} layers (ms per step, host clock, "
+          "synchronized): " + json.dumps({k: round(v, 3) for k, v in
+                                          layers.items()}) + f" [{card}]")
+    return res
+
+
+def record_launches(module, name):
+    """Wrap ``module.name`` so that each call records its arguments; returns
+    (the record list, a function that restores the wrapper)."""
+    orig = getattr(module, name)
+    calls = []
+
+    def rec(*args, **kw):
+        calls.append((args, kw))
+        return orig(*args, **kw)
+
+    rec.launches = orig.launches      # the wrapper counts on the name it is under
+    setattr(module, name, rec)
+
+    def restore():
+        orig.launches = rec.launches
+        setattr(module, name, orig)
+
+    return calls, restore
+
+
+def object_window_work(args, kw):
+    """Bytes and float operations of one object_window launch's windows:
+    52 bytes a window pixel; every pixel evaluates every edge of its
+    polygon primitives and every ellipse primitive."""
+    edges, meta, fmeta, win = args[:4]
+    m, w = meta.cpu().numpy(), win.cpu().numpy()
+    C = (m.shape[1] - 3) // 3
+    pix = w[:, 1].astype(np.float64) * w[:, 2]
+    n_edges, n_ell = np.zeros(len(m)), np.zeros(len(m))
+    for i, row in enumerate(m):
+        for c in range(int(row[0])):
+            if row[3 + C + c]:
+                n_edges[i] += row[3 + 2 * C + c]
+            else:
+                n_ell[i] += 1
+    ops = float((pix * (OPS_EDGE_PIXEL * n_edges
+                        + OPS_ELLIPSE_PIXEL * n_ell)).sum())
+    return OBJECT_WINDOW_PIXEL_BYTES * float(pix.sum()), ops
+
+
+def bound_of(nbytes, ops):
+    t_b, t_o = nbytes / PEAK_BYTES_S, ops / PEAK_F32_S
+    return {"bound_ms": 1e3 * max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "bytes": nbytes, "operations": ops}
+
+
+def time_object_window(calls, frames, flows, card):
+    """Per window class, the recorded launch with the most windows: CUDA
+    events over 10 launches on copies of the final planes, the plain
+    version once, the kernel against the plain version (max difference 0
+    expected), the bound."""
+    from flowgen_torch.ops import window
+
+    rows = {}
+    for args, kw in calls:
+        cls = tuple(kw["max_hw"])
+        if cls not in rows or args[3].shape[0] > rows[cls][0][3].shape[0]:
+            rows[cls] = (args, kw)
+    out = {}
+    for cls, (args, kw) in sorted(rows.items()):
+        fr = 1 if kw["sampled"] else 0
+        base_f, base_fl = frames[fr], flows[fr]
+        fk = base_f.clone()
+        flk = base_fl.clone() if base_fl is not None else None
+        call = lambda: window.object_window(*args[:4], fk, flk, args[6], **kw)
+        ms = event_ms(call)
+        fk, flk = base_f.clone(), (base_fl.clone() if base_fl is not None
+                                   else None)
+        call()
+        fp = base_f.clone()
+        flp = base_fl.clone() if base_fl is not None else None
+        with window.plain_versions():
+            p_ms, _ = host_ms(lambda: window.object_window(
+                *args[:4], fp, flp, args[6], **kw))
+        err = float((fk - fp).abs().max())
+        if flk is not None:
+            err = max(err, float((flk - flp).abs().max()))
+        bd = bound_of(*object_window_work(args, kw))
+        n = args[3].shape[0]
+        out[f"{cls[0]}x{cls[1]}"] = {"ms": ms, "plain_ms": p_ms,
+                                      "max_abs_err": err, "windows": n,
+                                      "frame": fr, **bd}
+        print(f"object_window, {n} windows of class {cls[0]}x{cls[1]} (frame "
+              f"{fr}): {ms:.4f} ms per launch (CUDA events, 10 launches); "
+              f"plain version {p_ms:.1f} ms; bound {bd['bound_ms']:.4f} ms by "
+              f"{bd['bound_by']} ({bd['bytes']:.4e} bytes, "
+              f"{bd['operations']:.4e} float ops); max |d| vs plain {err} "
+              f"[{card}]")
+        if err != 0.0:
+            fail("object_window differs from its plain version")
+    return out
+
+
+def time_polygon_coverage(calls, card):
+    """The recorded polygon_coverage launch with the most sample points:
+    CUDA events over 10 launches, the plain version once, the bound."""
+    from flowgen_torch.ops import window
+
+    args, _ = max(calls, key=lambda c: c[0][2].numel())
+    pts, n_edges, px, py = args
+    call = lambda: window.polygon_coverage(pts, n_edges, px, py)
+    ms = event_ms(call)
+    ka, ki = call()
+    p_ms, (pa, pi) = host_ms(lambda: window.polygon_coverage_plain(
+        pts, n_edges, px, py))
+    err = max(float((ka - pa).abs().max()), float((ki != pi).float().max()))
+    npix = px[0].numel()
+    pairs = float(n_edges.double().sum()) * npix
+    bd = bound_of(POLYGON_POINT_BYTES * float(px.numel()),
+                  OPS_EDGE_PIXEL * pairs)
+    print(f"polygon_coverage, {px.shape[0]} outlines over {tuple(px.shape[1:])}"
+          f" windows: {ms:.4f} ms per launch (CUDA events, 10 launches); plain "
+          f"version {p_ms:.1f} ms; bound {bd['bound_ms']:.4f} ms by "
+          f"{bd['bound_by']} ({bd['bytes']:.4e} bytes, {bd['operations']:.4e} "
+          f"float ops); max |d| vs plain {err} [{card}]")
+    if err != 0.0:
+        fail("polygon_coverage differs from its plain version")
+    return {"ms": ms, "plain_ms": p_ms, "max_abs_err": err,
+            "outlines": px.shape[0], **bd}
+
+
+def phase_window_timing(atlas_q, bank9, card, dev):
+    """Phase 15: the window kernels at the main paths' shapes, from the
+    launches of one B=64 render of step 0 (object_window: mode 7;
+    polygon_coverage: mode 9, whose deforming objects take it)."""
+    from flowgen_torch.compose.render import render_batch
+    from flowgen_torch.ops import window
+
+    cfg7 = sintel_cfg(mode=7)
+    scenes = sample(cfg7, 0, torch.arange(cfg7.batch_size), dev)
+    calls, restore = record_launches(window, "object_window")
+    try:
+        out = render_batch(scenes, atlas_q, cfg7)
+    finally:
+        restore()
+    ow = time_object_window(calls, (out[0], out[1]), (out[2], None), card)
+    del out
+    cfg9 = sintel_cfg(mode=9)
+    from flowgen_torch.warpfields import generator as wg
+
+    scenes = sample(cfg9, 0, torch.arange(cfg9.batch_size), dev,
+                    wg.bank_size(cfg9))
+    calls, restore = record_launches(window, "polygon_coverage")
+    try:
+        render_batch(scenes, atlas_q, cfg9, bank9)
+    finally:
+        restore()
+    if not calls:
+        fail("the mode-9 render launched no polygon_coverage")
+    pc = time_polygon_coverage(calls, card)
+    return ow, pc
+
+
+def phase_affine_resample(card, dev):
+    """Phase 15b: the standalone affine resampler on a 192x256 window of a
+    512x384 texture's slab (margin 64), against its plain version, timed
+    with its bytes bound: the window written once (12 bytes a pixel) and
+    the slab texels its footprint covers read once (4 bytes each)."""
+    import math
+
+    import flowgen_torch
+    from flowgen_torch.ops import resample as res
+
+    img = torch.from_numpy(flowgen_torch.procedural_atlas(
+        1, height=192, width=256, seed=1)[0])
+    slab = res.pack_padded_slab(img, 64, 64).to(dev)
+    wh, ww = 192, 256
+    P = res.max_row_span(wh, ww, 0.7, 1.35)
+    th, s = 0.3, 1.15
+    t = torch.tensor([[s * math.cos(th), -s * math.sin(th), 120.0],
+                      [s * math.sin(th), s * math.cos(th), 20.0]])
+    call = lambda: res.affine_resample(slab, t, 16, 8, wh=wh, ww=ww, P=P)
+    ms = event_ms(call)
+    k = call()
+    p_ms, p = host_ms(lambda: res.affine_resample_plain(slab, t, 16, 8, wh=wh,
+                                                        ww=ww, P=P))
+    err = float((k - p).abs().max())
+    det = abs(float(t[0, 0] * t[1, 1] - t[0, 1] * t[1, 0]))
+    bd = bound_of(wh * ww * (12 + 4 * det), 0.0)
+    print(f"affine_resample, {wh}x{ww} window of a 512x384 texture's slab "
+          f"{tuple(slab.shape)}: {ms:.4f} ms per launch (CUDA events, 10 "
+          f"launches); plain version {p_ms:.1f} ms; bound {bd['bound_ms']:.5f} "
+          f"ms by bytes ({bd['bytes']:.4e} bytes); max |d| vs plain {err} "
+          f"[{card}]")
+    if err != 0.0:
+        fail("affine_resample differs from its plain version")
+    return {"ms": ms, "plain_ms": p_ms, "max_abs_err": err, **bd}
+
+
+def phase_windowed(card, dev):
+    """Phases 12-15. Returns the rows of the window kernels and the
+    resampler."""
+    import flowgen_torch
+    from flowgen_torch.pipeline.generator import make_atlas_packer
+
+    cfg7, cfg9 = sintel_cfg(mode=7), sintel_cfg(mode=9)
+    t0 = time.perf_counter()
+    atlas = procedural_atlas(cfg7.height, cfg7.width)  # 32 textures, 872x2048
+    atlas_q = make_atlas_packer(dev)(atlas)
+    print(f"procedural atlas {atlas.shape}: {time.perf_counter() - t0:.1f} s "
+          "(numpy, host)")
+
+    # ---- 12: bank at 3072^2, windowed kernels vs plain, invariants ----
+    bank9, bank_err = phase_sintel_bank(cfg9, dev)
+    plains, worst = phase_windowed_vs_plain(atlas_q, bank9, dev)
+    phase_windowed_invariants(dev)
+
+    stamp("phase 12 (windowed vs plain) done")
+
+    # ---- 13-14: the windowed main paths ----
+    r7 = phase_windowed_main(cfg7, atlas, atlas_q, plains["mode 7"], card, dev)
+    r9 = phase_windowed_main(cfg9, atlas, atlas_q, plains["mode 9"], card, dev,
+                             n_steps=3, prof_steps=2)
+    stamp("phases 13-14 (windowed main paths) done")
+    if not r9["launches"]["polygon_coverage"]:
+        fail("the windowed mode-9 path launched no polygon_coverage")
+
+    # ---- 15: kernel timing at the main paths' shapes ----
+    ow, pc = phase_window_timing(atlas_q, bank9, card, dev)
+    ar = phase_affine_resample(card, dev)
+    small, full = ow["192x256"], ow[f"{SINTEL_HW[0]}x{SINTEL_HW[1]}"]
+    no_lib = ("no single PyTorch call computes it")
+    return [
+        {
+            "name": "object_window", "route": "cuda",
+            "source": "flowgen_torch/csrc/window.cu",
+            "replaces": "flowgen/ops/pallas_raster.py:335",
+            "launches": r7["launches"]["object_window"],
+            "max_abs_err": max(worst, small["max_abs_err"],
+                               full["max_abs_err"]),
+            "ms": small["ms"], "plain_ms": small["plain_ms"],
+            "bound_ms": small["bound_ms"], "bound_by": small["bound_by"],
+            "library_ms": None, "library": no_lib,
+            "path": "windowed mode 7, 1024x436, B=64",
+            "shape": f"{small['windows']} windows of 192x256",
+            "full_frame": full,
+            "mode9_launches": r9["launches"]["object_window"],
+        },
+        {
+            "name": "polygon_coverage", "route": "cuda",
+            "source": "flowgen_torch/csrc/window.cu",
+            "replaces": "flowgen/ops/pallas_raster.py:391",
+            "launches": r9["launches"]["polygon_coverage"],
+            "max_abs_err": max(worst, pc["max_abs_err"]),
+            "ms": pc["ms"], "plain_ms": pc["plain_ms"],
+            "bound_ms": pc["bound_ms"], "bound_by": pc["bound_by"],
+            "library_ms": None, "library": no_lib,
+            "path": "windowed mode 9, 1024x436, B=64",
+            "shape": f"{pc['outlines']} outlines, the largest launch of a "
+                     "mode-9 step",
+        },
+        {
+            "name": "affine_resample", "route": "cuda",
+            "source": "flowgen_torch/csrc/resample.cu",
+            "replaces": "flowgen/ops/pallas_resample.py:369",
+            "launches": 0, "max_abs_err": ar["max_abs_err"],
+            "ms": ar["ms"], "plain_ms": ar["plain_ms"],
+            "bound_ms": ar["bound_ms"], "bound_by": ar["bound_by"],
+            "library_ms": None, "library": no_lib,
+            "path": "0 launches on any path (standalone, as in the JAX "
+                    "package)",
+            "shape": "192x256 window of a 512x384 texture's slab",
+        },
+    ], bank_err
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
@@ -857,12 +1406,14 @@ def main():
         for ln in ptxas_summary(info["log"]):
             print(f"    {ln}")
 
+    stamp("build done")
     # ---- 2-4: mode 7 ----
     m7 = phase_mode7(card, dev)
 
+    stamp("phases 2-4 (mode 7) done")
     # ---- 5: bank kernels vs plain ----
     cfg = flowgen_torch.DataGenConfig(mode=9, batch_size=64, seed=0)
-    atlas = flowgen_torch.atlas_for_config(cfg)
+    atlas = procedural_atlas(cfg.height, cfg.width)
     bank = phase_bank(cfg, dev)
 
     # ---- 6: mode-9 scene kernel vs plain ----
@@ -879,7 +1430,8 @@ def main():
     del first
     counts = res["launches"]
     built = counts["coarse_gdisp"] // 18
-    if not all(counts.values()) or counts["coarse_gdisp"] != 18 * built or (
+    if not all(counts[k] for k in FUSED_KERNELS) or (
+            counts["coarse_gdisp"] != 18 * built) or (
             counts["hwarp_rows"] != 34 * built):
         fail(f"the mode-9 path's kernel launches are off: {counts}")
     print(f"mode 9 bank epochs built: {built} (18 coarse_gdisp and 34 "
@@ -916,8 +1468,13 @@ def main():
     bank_err = bank["max_abs_err"]
     del bank, slabs, args, k_out, p_out
 
+    stamp("phases 5-8 (mode 9) done")
     # ---- 9-11: modes 13 and 11, the mode-13 main path ----
     m13 = phase_mode13(card, dev)
+
+    stamp("phases 9-11 (modes 13, 11) done")
+    # ---- 12-15: the windowed renderer at MPI-Sintel's 1024x436 ----
+    win_rows, sintel_bank_err = phase_windowed(card, dev)
 
     rows = [
         {
@@ -938,8 +1495,8 @@ def main():
             "source": "flowgen_torch/csrc/fields.cu",
             "replaces": "flowgen/warpfields/pallas_fields.py:98",
             "launches": counts["coarse_gdisp"],
-            "max_abs_err": max(bank_err, c768["max_abs_err"],
-                               c1536["max_abs_err"]),
+            "max_abs_err": max(bank_err, sintel_bank_err,
+                               c768["max_abs_err"], c1536["max_abs_err"]),
             "ms": c768["ms"], "plain_ms": c768["plain_ms"],
             "bound_ms": c768["bound_ms"], "bound_by": "bytes",
             "library_ms": None,
@@ -952,15 +1509,16 @@ def main():
             "source": "flowgen_torch/csrc/fields.cu",
             "replaces": "flowgen/warpfields/pallas_fields.py:174",
             "launches": counts["hwarp_rows"],
-            "max_abs_err": max(bank_err, h768["max_abs_err"],
-                               h1536["max_abs_err"]),
+            "max_abs_err": max(bank_err, sintel_bank_err,
+                               h768["max_abs_err"], h1536["max_abs_err"]),
             "ms": h768["ms"], "plain_ms": h768["plain_ms"],
             "bound_ms": h768["bound_ms"], "bound_by": "bytes",
             "library_ms": h768["library_ms"],
             "shape": "12288 x 768 rows (32 of the 34 launches of an epoch)",
             "at_1536": h1536,
         },
-    ]
+    ] + win_rows
+    stamp("phases 12-15 (windowed) done")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -12,9 +12,11 @@ adapter and the streaming ``Generator``; mode 9: the warp-field bank
 (``warpfields/``, CUDA kernels in ``csrc/fields.cu``) and the scene
 kernel's displacement warps (``csrc/warp.cuh``); and modes 11 and 13
 (quadrant slabs, 2x2 frame-1 texture sub-windows), the inverse flow
-(``flow1``) and the occlusion and motion-boundary masks. Photometric
-augmentation, the TextureDB path and the windowed fallback are not ported
-yet (ROADMAP.md, port queue).
+(``flow1``) and the occlusion and motion-boundary masks; and the windowed
+renderer (``compose/render.py``, CUDA kernels in ``csrc/window.cu``) for
+frames that are not multiples of (8, 128), such as MPI-Sintel's 1024x436.
+Photometric augmentation and the TextureDB path are not ported yet
+(ROADMAP.md, port queue).
 """
 
 from .config import (

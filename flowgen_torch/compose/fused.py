@@ -399,18 +399,24 @@ def check_slice(cfg: DataGenConfig):
                     "queue item 3")
     if cfg.photometric_augment:
         todo.append("photometric_augment: port queue item 1")
-    if (cfg.render_impl == "windowed" or cfg.use_pallas == "never"
-            or not cfg.windowed):
-        todo.append("the windowed renderer: port queue item 6")
     if cfg.texture_dbases:
         todo.append("texture_dbases / TextureDB: port queue item 2")
-    if not ps.fused_eligible(spec, cfg.height, cfg.width):
-        todo.append("frames not (8, 128)-aligned need the windowed renderer: "
-                    "port queue item 6")
     if todo:
         raise NotImplementedError(
             "not ported yet (see ROADMAP.md): " + "; ".join(todo)
         )
+
+
+def check_fused(cfg: DataGenConfig):
+    """The scene kernel's own conditions: frames of multiples of (8, 128)
+    and a mode whose motion envelope fits its slabs. Other configurations
+    render through the windowed renderer (``compose/render.py``)."""
+    check_slice(cfg)
+    if not ps.fused_eligible(cfg.mode_spec, cfg.height, cfg.width):
+        raise ValueError(
+            f"mode {cfg.mode} at {cfg.width}x{cfg.height} does not fit the "
+            "scene kernel (frames of multiples of (8, 128)); render it with "
+            "the windowed renderer (render_impl='windowed')")
 
 
 def scene_tables(scenes: Scene, cfg: DataGenConfig, slabs, bgslabs, src_hw,
@@ -467,7 +473,7 @@ def render_batch_fused(scenes: Scene, slabs, bgslabs, src_hw,
     ``cfg.compute_inverse_flow`` and the masks with ``cfg.emit_masks``.
     ``src_hw``: the background sources' (height, width). Nonrigid modes pass
     ``warp_aux`` (a ``compose/render.py:WarpAux``)."""
-    check_slice(cfg)
+    check_fused(cfg)
     args, options = scene_tables(scenes, cfg, slabs, bgslabs, src_hw, warp_aux)
     frames, flow, ids = ps.scene_render(*args, bg_only=bg_only, **options)
 

@@ -31,6 +31,8 @@ NVCC_FLAGS = [
 LIBRARIES = {
     "flowgen_scene": ("scene.cu", ("coverage.cuh", "resample.cuh", "warp.cuh")),
     "flowgen_fields": ("fields.cu", ()),
+    "flowgen_window": ("window.cu", ("coverage.cuh",)),
+    "flowgen_resample": ("resample.cu", ("resample.cuh", "coverage.cuh")),
 }
 
 _loaded = {}
@@ -135,4 +137,26 @@ def load_fields_library():
         lib.flowgen_hwarp_rows.argtypes = [ctypes.c_void_p] * 3 + [
             ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.flowgen_hwarp_rows.restype = ctypes.c_int
+    return lib
+
+
+def load_window_library():
+    lib = _load("flowgen_window")
+    if lib.flowgen_object_window.argtypes is None:
+        lib.flowgen_object_window.argtypes = [ctypes.c_void_p] * 7 + [
+            ctypes.c_int] * 16 + [ctypes.c_void_p]
+        lib.flowgen_object_window.restype = ctypes.c_int
+        lib.flowgen_polygon_coverage.argtypes = [ctypes.c_void_p] * 6 + [
+            ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.flowgen_polygon_coverage.restype = ctypes.c_int
+    return lib
+
+
+def load_resample_library():
+    lib = _load("flowgen_resample")
+    fn = lib.flowgen_affine_resample
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] + [ctypes.c_float] * 6 + [
+            ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib

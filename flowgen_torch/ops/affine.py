@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from .._fp import div
+from .._fp import cos, div, sin
 
 
 def _t(x, like=None):
@@ -29,7 +29,7 @@ def identity(device="cpu"):
 def rotation(alpha):
     """agg::trans_affine_rotation."""
     alpha = _t(alpha)
-    c, s = torch.cos(alpha), torch.sin(alpha)
+    c, s = cos(alpha), sin(alpha)
     z = torch.zeros_like(c)
     return torch.stack(
         [torch.stack([c, -s, z], -1), torch.stack([s, c, z], -1)], -2

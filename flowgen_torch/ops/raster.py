@@ -64,16 +64,30 @@ def edge_cell_area(ax, ay, bx, by, px, py):
 
 
 def polygon_coverage(edge_pts, px, py):
-    """Coverage (aa, inside) of a closed outline ``edge_pts`` (E, 2) over
-    pixel-centre grids ``px``/``py``; edge contributions are summed in edge
-    order."""
+    """Coverage (aa, inside) of a closed outline ``edge_pts`` (..., E, 2)
+    over pixel-centre grids ``px``/``py`` (..., h, w), the leading dims
+    batched; edge contributions are summed in edge order."""
     a = edge_pts
-    b = torch.roll(edge_pts, -1, dims=0)
+    b = torch.roll(edge_pts, -1, dims=-2)
     area = torch.zeros_like(px)
-    for e in range(edge_pts.shape[0]):
-        area = area + edge_cell_area(a[e, 0], a[e, 1], b[e, 0], b[e, 1], px, py)
+
+    def col(t, e, i):
+        return t[..., e, i, None, None]
+
+    for e in range(edge_pts.shape[-2]):
+        area = area + edge_cell_area(col(a, e, 0), col(a, e, 1), col(b, e, 0),
+                                     col(b, e, 1), px, py)
     area = area.abs()
     return torch.clamp(area, 0.0, 1.0), area >= 0.5
+
+
+def pixel_grid(width, height, center_offset=0.5, device="cpu"):
+    """Pixel sample positions (px, py), each (height, width) float32:
+    coverage is evaluated at centres (+0.5), flow at integer coordinates."""
+    ys = torch.arange(height, dtype=torch.float32, device=device) + center_offset
+    xs = torch.arange(width, dtype=torch.float32, device=device) + center_offset
+    py, px = torch.meshgrid(ys, xs, indexing="ij")
+    return px, py
 
 
 def _sector_center_dir(ux, uy, steps: int):
@@ -198,13 +212,27 @@ def ellipse_chord_coverage(ux, uy, jxx, jxy, jyx, jyy, steps: int = 100):
 
 def ellipse_coverage(transform, rx, ry, px, py):
     """Coverage of an ellipse (radii rx, ry about the local origin) under the
-    local -> screen affine ``transform``."""
+    local -> screen affine ``transform`` (..., 2, 3), the leading dims
+    batched against grids ``px``/``py`` (..., h, w)."""
     from .affine import invert
 
     inv = invert(transform)
-    ux = div(inv[0, 0] * px + inv[0, 1] * py + inv[0, 2], rx)
-    uy = div(inv[1, 0] * px + inv[1, 1] * py + inv[1, 2], ry)
+    i = [[inv[..., r, c, None, None] for c in range(3)] for r in range(2)]
+    rx = rx[..., None, None] if torch.is_tensor(rx) else rx
+    ry = ry[..., None, None] if torch.is_tensor(ry) else ry
+    ux = div(i[0][0] * px + i[0][1] * py + i[0][2], rx)
+    uy = div(i[1][0] * px + i[1][1] * py + i[1][2], ry)
     return ellipse_chord_coverage(
-        ux, uy, div(inv[0, 0], rx), div(inv[0, 1], rx), div(inv[1, 0], ry),
-        div(inv[1, 1], ry),
+        ux, uy, div(i[0][0], rx), div(i[0][1], rx), div(i[1][0], ry),
+        div(i[1][1], ry),
     )
+
+
+def combine_additive(acc_aa, acc_in, aa, inside):
+    """Screen-algebra union u | v: u = 1 - (1 - u)(1 - v)."""
+    return 1.0 - (1.0 - acc_aa) * (1.0 - aa), acc_in | inside
+
+
+def combine_subtractive(acc_aa, acc_in, aa, inside):
+    """Screen-algebra subtraction u & ~v: u = u (1 - v)."""
+    return acc_aa * (1.0 - aa), acc_in & ~inside

@@ -277,6 +277,65 @@ def two_pass_window(slab: torch.Tensor, coeffs, x0: int, y0: int, wh: int,
 
 
 # ---------------------------------------------------------------------------
+# The standalone resampler (the JAX package's affine_resample_pallas)
+# ---------------------------------------------------------------------------
+
+
+def _f32_coeffs(transform):
+    """:func:`two_pass_coeffs` of a (2, 3) output -> slab affine, as float32
+    scalars on the host."""
+    t = transform.cpu().numpy() if torch.is_tensor(transform) else transform
+    (a, b, e), (c, d, f) = np.asarray(t, np.float32)
+    B = b / d
+    return (a - B * c, B, e - B * f, c, d, f)
+
+
+def affine_resample_plain(slab, transform, x0: int, y0: int, *, wh: int,
+                          ww: int, P: int):
+    """The plain version of :func:`affine_resample`: the staged two-pass
+    resample of the whole slab width (:func:`two_pass_window`)."""
+    r, g, b = two_pass_window(slab, _f32_coeffs(transform), int(x0), int(y0),
+                              wh, ww, P, slab.shape[1])
+    return torch.stack([r, g, b], -1)
+
+
+def affine_resample(slab, transform, x0: int, y0: int, *, wh: int, ww: int,
+                    P: int):
+    """Resample a (wh, ww) window at output origin (x0, y0) through an
+    output -> slab affine ``transform`` (2, 3) from a packed padded slab
+    (:func:`pack_padded_slab`), staging ``P`` source rows. Returns (wh, ww,
+    3) float32. A CUDA slab launches ``csrc/resample.cu:
+    affine_resample_kernel`` (counted in ``affine_resample.launches``); a
+    CPU slab runs :func:`affine_resample_plain`. No path of the generator
+    calls it, as in the JAX package."""
+    if slab.device.type == "cpu":
+        return affine_resample_plain(slab, transform, x0, y0, wh=wh, ww=ww,
+                                     P=P)
+    if (slab.device.type != "cuda" or slab.dtype != torch.int32
+            or not slab.is_contiguous() or slab.dim() != 2):
+        raise ValueError("affine_resample: expects a contiguous (SH, SW) int32 "
+                         "CUDA slab")
+    import ctypes
+
+    from ._build import load_resample_library
+
+    SH, SW = slab.shape
+    out = torch.empty((wh, ww, 3), dtype=torch.float32, device=slab.device)
+    err = load_resample_library().flowgen_affine_resample(
+        ctypes.c_void_p(slab.data_ptr()),
+        *(float(c) for c in _f32_coeffs(transform)),
+        ctypes.c_void_p(out.data_ptr()), SH, SW, int(x0), int(y0), wh, ww, P,
+        ctypes.c_void_p(torch.cuda.current_stream(slab.device).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"affine_resample kernel launch failed: CUDA error {err}")
+    affine_resample.launches += 1
+    return out
+
+
+affine_resample.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # Banded taps and the mode-9 resamplers (plain versions)
 # ---------------------------------------------------------------------------
 #

@@ -1,8 +1,12 @@
-"""Texture crop transforms (port of ``flowgen/ops/texture.py:169-237``).
+"""Texture sampling and crop transforms (port of ``flowgen/ops/texture.py``).
 
-The output -> source affine of Texture::getRandomizedCrop
+Bilinear gathers with the AGG reflect, clamp and zero wraps, the quad-packed
+tables that hold each texel's 2x2 footprint in one row (``make_quad``), and
+the output -> source affine of Texture::getRandomizedCrop
 (DataGenerator.cpp:87-109), including the reference's quirk of applying a
-rotation sampled in radians as degrees.
+rotation sampled in radians as degrees. The samplers take a leading batch:
+an image (N, h, w, C) is sampled at coordinates (N, ...), each sample from
+its own image.
 """
 
 from __future__ import annotations
@@ -11,8 +15,123 @@ import math
 
 import torch
 
-from .._fp import div, f32
+from .._fp import div, f32, mod
 from . import affine
+
+
+def _wrap_indices(i, n, mode):
+    """Integer texel indices under AGG's reflect wrap (period 2n, second
+    half mirrored) or clamped ("clamp", and "zero", whose caller masks)."""
+    if mode == "reflect":
+        period = 2 * n
+        i = torch.remainder(i, period)
+        return torch.where(i >= n, period - 1 - i, i)
+    if mode in ("clamp", "zero"):
+        return torch.clamp(i, 0, n - 1)
+    raise ValueError(f"unknown wrap mode {mode}")
+
+
+def _batch_rows(n_img, h, w, x):
+    """Row offset of each sample's image in a flattened (N*h*w, C) stack."""
+    base = torch.arange(n_img, device=x.device) * (h * w)
+    return base.reshape((n_img,) + (1,) * (x.dim() - 1))
+
+
+def sample_bilinear(img, x, y, wrap="reflect"):
+    """Bilinear sample ``img`` (h, w, C), or (N, h, w, C) against
+    coordinates (N, ...), at float coords (x, y), texel centres at integers.
+    Returns x's shape with a trailing channel axis."""
+    h, w = img.shape[-3], img.shape[-2]
+    base = _batch_rows(img.shape[0], h, w, x) if img.dim() == 4 else 0
+    return sample_bilinear_flat(img.reshape(-1, img.shape[-1]), base, h, w,
+                                x, y, wrap)
+
+
+def sample_bilinear_flat(flat, base, h, w, x, y, wrap="reflect",
+                         scrub_nan=False):
+    """:func:`sample_bilinear` against a stack of (h, w) images flattened to
+    (N*h*w, C), each sample's image selected by its row offset ``base``;
+    ``scrub_nan`` replaces NaN texels by 0 before the lerp."""
+    x0f = torch.floor(x)
+    y0f = torch.floor(y)
+    fx = (x - x0f)[..., None]
+    fy = (y - y0f)[..., None]
+    x0 = x0f.to(torch.int64)
+    y0 = y0f.to(torch.int64)
+    xi0 = _wrap_indices(x0, w, wrap)
+    xi1 = _wrap_indices(x0 + 1, w, wrap)
+    yi0 = _wrap_indices(y0, h, wrap)
+    yi1 = _wrap_indices(y0 + 1, h, wrap)
+
+    def tap(yi, xi):
+        v = flat[base + yi * w + xi]
+        return torch.nan_to_num(v) if scrub_nan else v
+
+    v00 = tap(yi0, xi0)
+    v01 = tap(yi0, xi1)
+    v10 = tap(yi1, xi0)
+    v11 = tap(yi1, xi1)
+    top = v00 + (v01 - v00) * fx
+    bot = v10 + (v11 - v10) * fx
+    out = top + (bot - top) * fy
+    if wrap == "zero":
+        ok = (x >= 0) & (x <= w - 1) & (y >= 0) & (y <= h - 1)
+        out = torch.where(ok[..., None], out, torch.zeros_like(out))
+    return out
+
+
+def make_quad(img):
+    """Pack each texel's 2x2 bilinear footprint into one row: (..., h, w, C)
+    -> (..., h, w, 4C) as [p00 | p01 | p10 | p11], edge neighbours clamped
+    (which coincides with reflect at the boundary)."""
+    right = torch.cat([img[..., :, 1:, :], img[..., :, -1:, :]], dim=-2)
+    down = torch.cat([img[..., 1:, :, :], img[..., -1:, :, :]], dim=-3)
+    downright = torch.cat([right[..., 1:, :, :], right[..., -1:, :, :]], dim=-3)
+    return torch.cat([img, right, down, downright], dim=-1)
+
+
+def _reflect_fold_coord(x, n):
+    """Fold a continuous coordinate into [0, n-1] under AGG reflect wrap so
+    that in-range bilinear with edge-clamped neighbours is exactly
+    reflect-bilinear; in-range coordinates pass through untouched."""
+    period = 2.0 * n
+    u = mod(x + 0.5, period)
+    xr = torch.where(u < n, u - 0.5, (period - u) - 0.5)
+    in_range = (x >= 0) & (x <= n - 1)
+    return torch.where(in_range, x, torch.clamp(xr, 0.0, n - 1.0))
+
+
+def sample_bilinear_quad_flat(flat, base, h, w, x, y, wrap="reflect",
+                              channels=3, row_stride=None):
+    """Bilinear sample from quad-packed tables (``make_quad``), one row
+    gather per sample point (the JAX package's ``sample_bilinear_quad`` and
+    ``sample_bilinear_quad_flat``): a stack of (h, w, 4c) tables flattened
+    to (T*h*w, 4c), each sample's texture selected by its row offset
+    ``base`` (broadcastable to x). ``row_stride`` (default ``w``) reads an
+    (h, w) crop of a wider table."""
+    if wrap == "reflect":
+        x = _reflect_fold_coord(x, w)
+        y = _reflect_fold_coord(y, h)
+    x0f = torch.floor(x)
+    y0f = torch.floor(y)
+    fx = (x - x0f)[..., None]
+    fy = (y - y0f)[..., None]
+    clamp_wrap = "clamp" if wrap == "reflect" else wrap
+    xi = _wrap_indices(x0f.to(torch.int64), w, clamp_wrap)
+    yi = _wrap_indices(y0f.to(torch.int64), h, clamp_wrap)
+    stride = w if row_stride is None else row_stride
+    rows = flat[base + yi * stride + xi].to(torch.float32)
+    p00 = rows[..., 0 * channels : 1 * channels]
+    p01 = rows[..., 1 * channels : 2 * channels]
+    p10 = rows[..., 2 * channels : 3 * channels]
+    p11 = rows[..., 3 * channels : 4 * channels]
+    top = p00 + (p01 - p00) * fx
+    bot = p10 + (p11 - p10) * fx
+    out = top + (bot - top) * fy
+    if wrap == "zero":
+        ok = (x >= 0) & (x <= w - 1) & (y >= 0) & (y <= h - 1)
+        out = torch.where(ok[..., None], out, torch.zeros_like(out))
+    return out
 
 
 def _scalar_like(x, like):

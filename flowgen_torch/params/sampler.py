@@ -16,7 +16,7 @@ import math
 import numpy as np
 import torch
 
-from .._fp import div, f32
+from .._fp import cos, div, f32, sin
 from ..config import (
     EDGE_SUBDIV,
     ELLIPSE_STEPS,
@@ -79,7 +79,7 @@ def _sample_spoke_polygon(d: ScopeDraws, spec: ModeSpec):
     xs = d.uniform(Stream.POLY_SCALE_X, *spec.poly_scale_range)
     ys = d.uniform(Stream.POLY_SCALE_Y, *spec.poly_scale_range)
     verts = torch.stack(
-        [xs[..., None] * r * torch.cos(phi), ys[..., None] * r * torch.sin(phi)],
+        [xs[..., None] * r * cos(phi), ys[..., None] * r * sin(phi)],
         dim=-1,
     )
 
@@ -225,8 +225,8 @@ def sample_background(d: ScopeDraws, spec: ModeSpec, width, height,
     pre_ty = shapers.gaussian_4(*spec.bg_trans_range, d.normal(Stream.BG_TRANS_Y))
     if spec.horizontal_only:
         pre_ty = torch.zeros_like(pre_ty)
-    tx = torch.cos(-rot) * pre_tx - torch.sin(-rot) * pre_ty
-    ty = torch.sin(-rot) * pre_tx + torch.cos(-rot) * pre_ty
+    tx = cos(-rot) * pre_tx - sin(-rot) * pre_ty
+    ty = sin(-rot) * pre_tx + cos(-rot) * pre_ty
     motion = affine.motion_transform(rot, scale, tx, ty)
 
     dev = d.row.device
@@ -373,8 +373,8 @@ def sample_scene(skeys, spec: ModeSpec, *, width: int, height: int,
         2.0 * math.pi / ELLIPSE_STEPS
     )
     gon = torch.stack(
-        [torch.cos(ang) * e1(s_rx * f32(spec.thin_shrink)),
-         torch.sin(ang) * e1(s_ry)], -1,
+        [cos(ang) * e1(s_rx * f32(spec.thin_shrink)),
+         sin(ang) * e1(s_ry)], -1,
     )                                                     # (B,K,100,2)
     gon = torch.cat(
         [gon, gon[..., :1, :].expand(gon.shape[:-2] + (MAX_EDGES - ELLIPSE_STEPS, 2))],

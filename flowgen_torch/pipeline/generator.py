@@ -2,9 +2,12 @@
 ``flowgen/pipeline/generator.py``).
 
 A batch is a pure function of ``(seed, step)``: sample the scenes of global
-indices ``step*B .. step*B+B-1``, precompute the scene-kernel tables, render,
-and adapt the output. PyTorch enqueues device work asynchronously, so the
-runtime keeps ``prefetch`` steps in flight on the current CUDA stream.
+indices ``step*B .. step*B+B-1``, render them and adapt the output. Frames of
+multiples of (8, 128) render through the scene kernel (``compose/fused.py``);
+other frame sizes, and the settings that ask for it, through the windowed
+renderer (``compose/render.py``), as :func:`use_fused_path` decides.
+PyTorch enqueues device work asynchronously, so the runtime keeps
+``prefetch`` steps in flight on the current CUDA stream.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card and without that request they raise.
@@ -20,9 +23,15 @@ import numpy as np
 import torch
 
 from .. import texture_io
-from ..compose.fused import check_slice, render_batch_fused
+from ..compose.fused import check_slice, masks_from_ids, render_batch_fused
+from ..compose.render import _pallas_enabled, prepare_atlas, render_batch
 from ..config import DataGenConfig
-from ..ops.scene import prepare_bg_slabs, prepare_slabs, quadrant_needed
+from ..ops.scene import (
+    fused_eligible,
+    prepare_bg_slabs,
+    prepare_slabs,
+    quadrant_needed,
+)
 from ..params.sampler import sample_scene_batch
 from ..random.streams import root_key
 from ..warpfields import generator as warpgen
@@ -73,6 +82,40 @@ def _as_u8(atlas) -> torch.Tensor:
     return a
 
 
+def use_fused_path(cfg: DataGenConfig, device) -> bool:
+    """Whether this configuration renders through the scene kernel
+    (``compose/fused.py``) on ``device``. ``cfg.render_impl`` is the dial:
+    "fused" (the default) takes the kernel whenever the frame is a multiple
+    of (8, 128) and the mode's envelope fits a texture sub-tiling;
+    "windowed", ``use_pallas="never"`` and ``windowed=False`` take the
+    windowed renderer; "auto" takes the kernel only where the window kernels
+    would run too (a CUDA device, or ``use_pallas="always"``)."""
+    if cfg.render_impl == "windowed" or cfg.use_pallas == "never":
+        return False
+    eligible = cfg.windowed and fused_eligible(cfg.mode_spec, cfg.height,
+                                               cfg.width)
+    if cfg.render_impl == "auto":
+        return eligible and _pallas_enabled(cfg, device)
+    return eligible
+
+
+def make_atlas_packer(device):
+    """Cache of the quad-packed atlas (``compose/render.py:prepare_atlas``)
+    that the windowed renderer samples, packed once per distinct atlas
+    object; an atlas already packed (last dim 12) passes through."""
+    cache = {}
+
+    def packed(atlas):
+        if torch.is_tensor(atlas) and atlas.shape[-1] == 12:
+            return atlas.to(device)
+        if cache.get("id") != id(atlas):
+            cache["id"] = id(atlas)
+            cache["val"] = prepare_atlas(_as_u8(atlas).to(device))
+        return cache["val"]
+
+    return packed
+
+
 def make_slab_packer(cfg: DataGenConfig, device):
     """Cache of the packed texture slabs (object crops, with their rot90
     copies in the quadrant modes 11 and 13, and full background sources),
@@ -95,16 +138,18 @@ def make_slab_packer(cfg: DataGenConfig, device):
 
 
 def generate_batch(root, step, atlas, cfg: DataGenConfig, base_index=None,
-                   slabs=None, device=None, warp_aux=None):
+                   slabs=None, device=None, warp_aux=None, warp_bank=None):
     """One batch: samples ``cfg.batch_size`` scenes at global indices
     ``base_index .. base_index+B-1`` (default ``step*B``) and renders them.
-    ``atlas`` is a (T, 2H, 2W, 3) texture bank; ``slabs`` optionally the
-    pre-packed ``(obj_slabs, bg_slabs, (src_h, src_w))``. ``root`` is a key
-    from ``random.streams.root_key`` or an int seed. In mode 9 the warp
-    planes of the step's bank epoch (the ``WarpAux`` of
-    ``warpfields/generator.py:make_bank_and_aux``) may be passed
-    (``make_generate_fn`` caches them per epoch); otherwise they are built
-    here from ``(root, step)``."""
+    ``atlas`` is a (T, 2H, 2W, 3) texture bank (the windowed renderer also
+    takes it quad-packed, (T, 2H, 2W, 12)); ``slabs`` optionally the scene
+    kernel's pre-packed ``(obj_slabs, bg_slabs, (src_h, src_w))``. ``root``
+    is a key from ``random.streams.root_key`` or an int seed. In mode 9 the
+    step's bank epoch may be passed (``make_generate_fn`` caches it per
+    epoch): the scene kernel's warp planes (``warp_aux``, the ``WarpAux`` of
+    ``warpfields/generator.py:make_bank_and_aux``) or the windowed
+    renderer's crop bank (``warp_bank``, ``make_warp_bank``); otherwise it
+    is built here from ``(root, step)``."""
     check_slice(cfg)
     dev = resolve_device(device)
     if not torch.is_tensor(root):
@@ -114,17 +159,34 @@ def generate_batch(root, step, atlas, cfg: DataGenConfig, base_index=None,
     if base_index is None:
         base_index = int(step) * b
     indices = base_index + torch.arange(b, device=dev)
+    warp = cfg.mode_spec.warp_p > 0.0
+    n_slots = warpgen.bank_size(cfg) if warp else 1
+    if not use_fused_path(cfg, dev):
+        if warp and warp_bank is None:
+            warp_bank = warpgen.make_warp_bank(root, step, cfg)
+        scenes = sample_scene_batch(root, indices, cfg, n_warp_slots=n_slots)
+        rendered = list(render_batch(scenes, make_atlas_packer(dev)(atlas),
+                                     cfg, warp_bank if warp else None))
+        if cfg.emit_masks:
+            ids = rendered.pop()
+            f0 = rendered[2]
+            rendered += list(masks_from_ids(ids, f0[..., 0], f0[..., 1]))
+        return _split_and_adapt(rendered, cfg)
     if slabs is None:
         slabs = make_slab_packer(cfg, dev)(atlas)
     obj_slabs, bg_slabs, src_hw = slabs
-    n_slots = 1
-    if cfg.mode_spec.warp_p > 0.0:
-        n_slots = warpgen.bank_size(cfg)
-        if warp_aux is None:
-            _, warp_aux = warpgen.make_bank_and_aux(root, step, cfg)
+    if warp and warp_aux is None:
+        _, warp_aux = warpgen.make_bank_and_aux(root, step, cfg)
     scenes = sample_scene_batch(root, indices, cfg, n_warp_slots=n_slots)
-    rendered = list(render_batch_fused(scenes, obj_slabs, bg_slabs, src_hw,
-                                       cfg, warp_aux=warp_aux))
+    return _split_and_adapt(
+        render_batch_fused(scenes, obj_slabs, bg_slabs, src_hw, cfg,
+                           warp_aux=warp_aux), cfg)
+
+
+def _split_and_adapt(rendered, cfg: DataGenConfig):
+    """A renderer's (image0, image1, flow0[, flow1][, occlusion,
+    motion_boundary]) through :func:`_adapt_output`."""
+    rendered = list(rendered)
     i0, i1, f0 = rendered[:3]
     rest = rendered[3:]
     f1 = rest.pop(0) if cfg.compute_inverse_flow else None
@@ -182,31 +244,40 @@ class BankEpochCache:
 
 
 def make_generate_fn(cfg: DataGenConfig, device=None):
-    """``fn(root, step, atlas) -> batch`` with the slabs packed once per
-    atlas. In mode 9 the bank's warp planes are cached per (root, bank
-    epoch) (``cfg.warp_bank_reuse_steps`` steps) and the next epoch's are
+    """``fn(root, step, atlas) -> batch`` with the scene kernel's slabs, or
+    the windowed renderer's quad-packed atlas, packed once per atlas. In
+    mode 9 what the renderer takes of a bank epoch (the scene kernel's warp
+    planes, or the windowed renderer's crop bank) is cached per (root, bank
+    epoch) (``cfg.warp_bank_reuse_steps`` steps) and the next epoch's is
     built ahead (:class:`BankEpochCache`)."""
     check_slice(cfg)
     dev = resolve_device(device)
-    slab_of = make_slab_packer(cfg, dev)
-    if cfg.mode_spec.warp_p == 0.0:
-        def fn(root, step, atlas):
-            return generate_batch(root, step, atlas, cfg,
-                                  slabs=slab_of(atlas), device=dev)
+    fused = use_fused_path(cfg, dev)
+    pack = make_slab_packer(cfg, dev) if fused else make_atlas_packer(dev)
 
-        return fn
+    def batch(root, step, atlas, **extra):
+        if fused:
+            return generate_batch(root, step, atlas, cfg, slabs=pack(atlas),
+                                  device=dev, **extra)
+        return generate_batch(root, step, pack(atlas), cfg, device=dev,
+                              **extra)
+
+    if cfg.mode_spec.warp_p == 0.0:
+        return batch
 
     def build(root, step):
         key = root.to(dev) if torch.is_tensor(root) else root_key(root, dev)
-        return warpgen.make_bank_and_aux(key, step, cfg)[1]
+        if fused:
+            return warpgen.make_bank_and_aux(key, step, cfg)[1]
+        return warpgen.make_warp_bank(key, step, cfg)
 
-    planes = BankEpochCache(build, cfg.warp_bank_reuse_steps)
+    epochs = BankEpochCache(build, cfg.warp_bank_reuse_steps)
 
     def fn(root, step, atlas):
-        aux = planes.get(root, int(step))
-        out = generate_batch(root, step, atlas, cfg, slabs=slab_of(atlas),
-                             device=dev, warp_aux=aux)
-        planes.prefetch_next(root, int(step))
+        val = epochs.get(root, int(step))
+        out = batch(root, step, atlas,
+                    **{"warp_aux" if fused else "warp_bank": val})
+        epochs.prefetch_next(root, int(step))
         return out
 
     return fn
@@ -231,6 +302,9 @@ class Generator:
         self.device = resolve_device(device)
         if atlas is None:
             atlas = texture_io.atlas_for_config(cfg)
+        if not use_fused_path(cfg, self.device):
+            # The windowed renderer samples the quad-packed atlas: pack once.
+            atlas = make_atlas_packer(self.device)(atlas)
         self._atlas = atlas
         self._root = root_key(cfg.seed, self.device)
         self._fn = make_generate_fn(cfg, self.device)

@@ -20,6 +20,8 @@ import enum
 import numpy as np
 import torch
 
+from .. import _fp
+
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -262,5 +264,5 @@ class ScopeDraws:
             np.float32(0.5 / (1 << 24))
         )
         u2 = (b[..., 1] >> 8).to(torch.float32) * float(_U24)
-        r = torch.sqrt(-2.0 * torch.log(u1))
-        return r * torch.cos(float(np.float32(2.0 * np.pi)) * u2)
+        r = _fp.sqrt(-2.0 * _fp.log(u1))
+        return r * _fp.cos(float(np.float32(2.0 * np.pi)) * u2)

@@ -3,8 +3,9 @@
 
 Each bank epoch (``step // warp_bank_reuse_steps``) derives
 ``warp_fields_per_batch`` composed big fields from ``(seed, epoch)``, tiles
-them into crops (the bank), and solves the separable warp's column inverse
-once per big field (``make_bank_and_aux``, the hot-path producer). Objects
+them into crops (the bank, ``make_warp_bank``, which the windowed renderer
+samples), and for the scene kernel solves the separable warp's column
+inverse once per big field (``make_bank_and_aux``). Objects
 and backgrounds index the crops through their sampled warp slots.
 
 Only the default ``warp_bank_impl="pallas"`` content stream is ported; its
@@ -102,6 +103,15 @@ def _crop_bank(flows, iflows, cfg: DataGenConfig) -> WarpBank:
         iflow=_crops(iflows, cfg).permute(0, 2, 3, 1).contiguous(),
     )
     return apply_oob_policy(bank, cfg.warp_oob)
+
+
+def make_warp_bank(root, step, cfg: DataGenConfig) -> WarpBank:
+    """The crop bank of one bank epoch, without the scene kernel's warp
+    planes: what the windowed renderer samples (mode 9 off the fused
+    path)."""
+    if cfg.warp_bank_impl != "pallas":
+        raise _xla_not_ported()
+    return _crop_bank(*_big_fields(root, step, cfg), cfg)
 
 
 def _half_offset_expand(p, axis: int, c0: int, n_pairs: int):

@@ -117,7 +117,7 @@ def test_generator_without_device_raises_without_card():
 @pytest.mark.parametrize("kw", [
     dict(mode=9, warp_bank_impl="xla"),
     dict(mode=7, photometric_augment=True),
-    dict(mode=7, render_impl="windowed"),
+    dict(mode=7, render_impl="windowed", photometric_augment=True),
     dict(mode=7, texture_dbases=("list.txt",)),
 ])
 def test_out_of_slice_configs_raise(kw):
@@ -164,6 +164,42 @@ def test_slice_configs_render(kw, tsplit):
             c = 3 if k.startswith("image") else 2
             shape = (1, c, 96, cfg.width) if nchw else (1, 96, cfg.width, c)
             assert v.shape == shape and bool(torch.isfinite(v).all())
+
+
+@pytest.mark.parametrize("kw", [
+    dict(mode=7, render_impl="windowed"),
+    dict(mode=7, windowed=False),
+    dict(mode=7, use_pallas="never"),
+    dict(mode=7, height=90, use_antialiasing=False),
+    dict(mode=1, width=120, compute_inverse_flow=True, emit_masks=True),
+    dict(mode=9, height=90),
+])
+def test_windowed_configs_render(kw):
+    """Frames not (8, 128)-aligned and the settings that ask for it render
+    through the windowed renderer, with the JAX package's output keys,
+    shapes and types."""
+    from flowgen_torch.pipeline.generator import generate_batch, use_fused_path
+
+    cfg = flowgen_torch.DataGenConfig(**{"batch_size": 1, "width": 128,
+                                         "height": 96, **kw})
+    assert not use_fused_path(cfg, "cuda")
+    atlas = flowgen_torch.procedural_atlas(2, height=cfg.height,
+                                           width=cfg.width)
+    out = generate_batch(0, 0, atlas, cfg, device="cpu")
+    want = {"image0", "image1", "flow0"}
+    if cfg.compute_inverse_flow:
+        want.add("flow1")
+    if cfg.emit_masks:
+        want |= {"occlusion", "motion_boundary"}
+    assert set(out) == want
+    for k in want:
+        v = out[k]
+        if k in ("occlusion", "motion_boundary"):
+            assert v.shape == (1, cfg.height, cfg.width) and v.dtype == torch.bool
+        else:
+            c = 3 if k.startswith("image") else 2
+            assert v.shape == (1, cfg.height, cfg.width, c)
+            assert bool(torch.isfinite(v).all())
 
 
 def test_texture_db_atlas_raises():

@@ -6,6 +6,8 @@ JAX nor the JAX package, so it also runs on a machine without them:
     python -m pytest tests/test_torch_gpu.py -q --noconftest
 """
 
+import math
+
 import pytest
 import torch
 
@@ -195,3 +197,107 @@ def test_mode9_inverse_flow_and_ids_match_plain():
     assert torch.equal(kf, pf)
     assert torch.equal(kl, pl)
     assert torch.equal(ki, pi)
+
+
+def _windowed_inputs(cfg, seed, dev):
+    """Scenes, the quad-packed atlas and (mode 9) the crop bank of a
+    windowed batch."""
+    from flowgen_torch.pipeline.generator import make_atlas_packer
+    from flowgen_torch.warpfields.generator import bank_size, make_warp_bank
+
+    atlas = flowgen_torch.procedural_atlas(4, height=cfg.height, width=cfg.width)
+    warp = cfg.mode_spec.warp_p > 0.0
+    scenes = sample_scene_batch(
+        root_key(seed, dev), torch.arange(cfg.batch_size, device=dev), cfg,
+        n_warp_slots=bank_size(cfg) if warp else 1)
+    bank = make_warp_bank(root_key(seed, dev), 0, cfg) if warp else None
+    return scenes, make_atlas_packer(dev)(atlas), bank
+
+
+@pytest.mark.parametrize("kw", [
+    dict(mode=7), dict(mode=7, use_antialiasing=False),
+    dict(mode=7, compute_inverse_flow=True, emit_masks=True),
+    dict(mode=9, width=256, height=196),
+    dict(mode=9, width=256, height=196, compute_inverse_flow=True),
+])
+def test_windowed_render_kernels_match_plain(kw):
+    """The windowed renderer through object_window and polygon_coverage
+    equals the same through their plain versions, bit for bit."""
+    from flowgen_torch.compose.render import render_batch
+    from flowgen_torch.ops import window
+
+    _need_card()
+    cfg = flowgen_torch.DataGenConfig(**{"batch_size": 2, "width": 300,
+                                         "height": 200, **kw})
+    scenes, atlas_q, bank = _windowed_inputs(cfg, 3, torch.device("cuda"))
+    o0, p0 = window.object_window.launches, window.polygon_coverage.launches
+    k = render_batch(scenes, atlas_q, cfg, bank)
+    torch.cuda.synchronize()
+    assert (window.object_window.launches > o0
+            or window.polygon_coverage.launches > p0)
+    with window.plain_versions():
+        p = render_batch(scenes, atlas_q, cfg, bank)
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+
+
+def test_polygon_coverage_kernel_matches_plain():
+    from flowgen_torch.ops import window
+
+    _need_card()
+    g = torch.Generator().manual_seed(0)
+    n, E = 5, 120
+    ang = torch.sort(torch.rand((n, E), generator=g) * 6.283, dim=1).values
+    r = 20.0 + 60.0 * torch.rand((n, E), generator=g)
+    pts = torch.stack([150 + r * torch.cos(ang), 90 + r * torch.sin(ang)], -1)
+    n_edges = torch.tensor([3, 17, 60, 119, 120], dtype=torch.int32)
+    ys, xs = torch.meshgrid(torch.arange(192.0), torch.arange(256.0),
+                            indexing="ij")
+    px = (xs + 0.5 + torch.arange(n)[:, None, None] * 0.25).contiguous()
+    py = (ys + 0.5).expand(n, 192, 256).contiguous()
+    dev = torch.device("cuda")
+    before = window.polygon_coverage.launches
+    ka, ki = window.polygon_coverage(pts.to(dev), n_edges.to(dev), px.to(dev),
+                                     py.to(dev))
+    torch.cuda.synchronize()
+    assert window.polygon_coverage.launches == before + 1
+    pa, pi = window.polygon_coverage_plain(pts, n_edges, px, py)
+    assert torch.equal(ka.cpu(), pa) and torch.equal(ki.cpu(), pi)
+    assert 0 < float(pi.float().mean()) < 1
+
+
+def test_generate_batch_cuda_matches_cpu_windowed():
+    """Mode 7 at MPI-Sintel's 1024x436: the CUDA window kernels against the
+    CPU's composed branch, within the on-device gates."""
+    _need_card()
+    cfg = flowgen_torch.DataGenConfig(mode=7, batch_size=2, width=1024,
+                                      height=436)
+    atlas = flowgen_torch.procedural_atlas(4, height=436, width=1024)
+    g = generate_batch(0, 0, atlas, cfg, device="cuda")
+    c = generate_batch(0, 0, atlas, cfg, device="cpu")
+    assert set(g) == set(c)
+    for k in ("image0", "image1"):
+        d = (g[k].cpu() - c[k]).abs()
+        assert d.ge(1).float().mean().item() < 0.01
+        assert d.ge(2).float().mean().item() < 1e-4
+    d = (g["flow0"].cpu() - c["flow0"]).abs()
+    assert d.flatten().median().item() < 1e-4
+    assert (d > 0.01).float().mean().item() < 1e-3
+
+
+def test_affine_resample_kernel_matches_plain():
+    from flowgen_torch.ops import resample as res
+
+    _need_card()
+    img = torch.from_numpy(flowgen_torch.procedural_atlas(
+        1, height=192, width=256)[0])                      # (384, 512, 3)
+    slab = res.pack_padded_slab(img, 64, 64)
+    P = res.max_row_span(192, 256, 0.7, 1.35)
+    c, s = 1.1 * math.cos(0.3), 1.1 * math.sin(0.3)
+    t = torch.tensor([[c, -s, 90.0], [s, c, 40.0]])
+    before = res.affine_resample.launches
+    k = res.affine_resample(slab.cuda(), t, 16, 8, wh=192, ww=256, P=P)
+    torch.cuda.synchronize()
+    assert res.affine_resample.launches == before + 1
+    p = res.affine_resample_plain(slab, t, 16, 8, wh=192, ww=256, P=P)
+    assert torch.equal(k.cpu(), p)

@@ -89,6 +89,23 @@ def test_plain_matches_pallas_interpret(slabs, name, rot, zoom, tx, ty):
     np.testing.assert_allclose(out, ker, rtol=0, atol=2e-2)
 
 
+@pytest.mark.parametrize("name,rot,zoom,tx,ty", CASES[::2])
+def test_affine_resample_on_cpu_is_the_plain_version(slabs, name, rot, zoom,
+                                                     tx, ty):
+    """The standalone wrapper (affine_resample_pallas's counterpart) runs
+    its plain version on a CPU slab, in the JAX kernel's signature."""
+    t = _transform(rot, zoom, tx, ty)
+    P = jres.max_row_span(WH, WW, 0.7, 1.35)
+    tres.affine_resample.launches = 0
+    out = tres.affine_resample(slabs[1], torch.from_numpy(t.copy()), 4, 8,
+                               wh=WH, ww=WW, P=P)
+    assert out.shape == (WH, WW, 3) and out.dtype == torch.float32
+    np.testing.assert_array_equal(out.numpy(), _port(slabs[1], t, 4, 8, P))
+    assert tres.affine_resample.launches == 0
+    with pytest.raises(ValueError, match="CUDA"):
+        tres.affine_resample(slabs[1].to("meta"), t, 4, 8, wh=WH, ww=WW, P=P)
+
+
 @pytest.mark.parametrize("name,rot,zoom,tx,ty", CASES)
 def test_closed_form_equals_staged(slabs, name, rot, zoom, tx, ty):
     t = _transform(rot, zoom, tx, ty)
