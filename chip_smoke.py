@@ -37,7 +37,9 @@ Phases (any failure exits non-zero before the final line):
      B=64, coarse_gdisp's solve and hwarp_rows at 768^2 and 1536^2, and
      coarse_gdisp_batch as a whole beside the solve): CUDA events, the plain
      versions once, the bound, and for hwarp_rows the time of
-     torch.nn.functional.grid_sample on the same planes;
+     torch.nn.functional.grid_sample on the same planes, back to back and
+     with a cold L2; then every hwarp_rows launch of one bank epoch (34),
+     each against its plain version and timed alone with a cold L2, summed;
   9. modes 13 and 11 (quadrant slabs, 2x2 texture sub-windows) with inverse
      flow and id images, scene kernel vs plain at 512x384, B=4 (phase 6
      does the same for mode 9's warp branch): frames, all four flow planes
@@ -64,11 +66,17 @@ Phases (any failure exits non-zero before the final line):
      12), launches per step, and layers (sampler, background pass, object
      loop, adapt);
  14. the same for mode 9 (3 timed steps), with a bank-producer layer;
- 15. object_window (both window classes) and polygon_coverage at the main
-     paths' shapes, and the standalone affine_resample on a 192x256 window
-     of a 512x384 texture's slab: CUDA events, the plain versions once, the
-     bound; then one JSON line {"kernels": [...]} with six rows, and last
-     the line {"ok": true, "device": {...}}.
+ 15. step 0 of the windowed mode-7 and mode-9 paths (B=64) with every
+     object_window launch held against its plain version on the planes as
+     it found them (bit for bit, the sign of a zero aside), each timed
+     alone with a cold L2 and summed with its bound (bytes counted from
+     the launch's coverage) (and the largest launch of each window class also back to
+     back); polygon_coverage's largest launch of the mode-9 step, and all
+     its launches of that step timed and summed the same way; the
+     standalone affine_resample on a 192x256 window of a 512x384 texture's
+     slab: CUDA events, the plain versions once, the bound; then one JSON
+     line {"kernels": [...]} with six rows, and last the line {"ok": true,
+     "device": {...}}.
 
 It needs the repository (it imports flowgen_torch from its own directory),
 a CUDA card and nvcc. It imports nothing of JAX or of the JAX package.
@@ -99,6 +107,8 @@ PEAK_F32_S = 67e12
 # csrc/coverage.cuh (edge_contrib: 45; ellipse_chord_coverage: 190).
 OPS_EDGE_PIXEL = 45
 OPS_ELLIPSE_PIXEL = 190
+# Written before each cold-L2 timing: four times the H100's 50 MB L2.
+L2_FLUSH_BYTES = 200 * 2**20
 
 
 @functools.lru_cache(maxsize=None)
@@ -444,19 +454,60 @@ def bound(args, opts):
     }
 
 
-def event_ms(fn, reps: int = 10) -> float:
-    """Per-call time of ``fn`` on the card by CUDA events over ``reps``
-    calls, after two warm-up calls."""
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
+@functools.lru_cache(maxsize=None)
+def spin_cycles_per_ms() -> float:
+    """Clock cycles a torch.cuda._sleep spin on the card lasts a ms."""
+    n = 20_000_000
     e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(n)
     e0.record()
-    for _ in range(reps):
-        fn()
+    torch.cuda._sleep(n)
     e1.record()
     torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / reps
+    return n / e0.elapsed_time(e1)
+
+
+def event_ms(fn, reps: int = 10, cold: bool = False) -> float:
+    """Per-call device time of ``fn`` by CUDA events over ``reps`` calls,
+    after two warm-up calls. Each reading's calls are queued behind a spin
+    on the card (torch.cuda._sleep) that lasts longer than their host
+    work, so the events hold device time only; a reading whose host work
+    outlasted its spin is taken again with a longer one. Back to back, one
+    reading holds the ``reps`` calls; ``cold`` writes a buffer larger than
+    the 50 MB L2 before each call and times each call alone, as a caller
+    that finds its operands out of L2 sees it."""
+    for _ in range(2):
+        fn()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    calls, readings = (1, reps) if cold else (reps, 1)
+    spin_ms = 1.0 + 2e3 * host_s * calls
+    # Freed on return, so it never counts in a later peak-memory reading.
+    flush = (torch.empty(L2_FLUSH_BYTES // 4, device="cuda") if cold
+             else None)
+    total, taken = 0.0, 0
+    for _ in range(4 * readings + 4):
+        if flush is not None:
+            flush.zero_()
+        torch.cuda._sleep(int(spin_ms * spin_cycles_per_ms()))
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        e0.record()
+        for _ in range(calls):
+            fn()
+        e1.record()
+        enqueue_ms = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        if enqueue_ms >= spin_ms:
+            spin_ms = 2.0 * enqueue_ms
+            continue
+        total += e0.elapsed_time(e1)
+        taken += 1
+        if taken == readings:
+            return total / (readings * calls)
+    fail("event_ms: the host's work kept outlasting the spin ahead of it")
 
 
 def host_ms(fn):
@@ -621,9 +672,10 @@ def one_doubling(f):
     return gd, compose.displace_planes_batch(f, gd, f[:, 1])
 
 
-def phase_bank(cfg, dev):
-    """Phase 5. Returns the fields the timing phase reuses and the kernel
-    bank and aux of epoch 0."""
+def bank_doubling_inputs(cfg, dev):
+    """The big fields of bank epoch 0 as the 16th half-lattice doubling and
+    the full-size doubling find them, on the kernel path's own states:
+    (M, 2, S/2, S/2) and (M, 2, S, S) planes."""
     from flowgen_torch.random.streams import Stream, fold_in, root_key, stream_key
     from flowgen_torch.warpfields import compose, fields
     from flowgen_torch.warpfields import generator as wg
@@ -638,11 +690,20 @@ def phase_bank(cfg, dev):
         flags += [False, True]
     grid, inv = fields.stack_grids(grids, flags)
     f_h = fields.elementary_field(grid, big // 2, inv, stride=2.0) * 0.5
-    # The 16th half-lattice doubling and the full-size doubling, on the
-    # kernel path's own states.
     f15 = torch.nan_to_num(compose.self_compose_batch(f_h, 15))
     f16 = compose.self_compose_batch(f15, 1)
-    full = 2.0 * fields._upsample2(torch.nan_to_num(f16))
+    return f15, 2.0 * fields._upsample2(torch.nan_to_num(f16))
+
+
+def phase_bank(cfg, dev):
+    """Phase 5. Returns the fields the timing phase reuses and the kernel
+    bank and aux of epoch 0."""
+    from flowgen_torch.random.streams import root_key
+    from flowgen_torch.warpfields import compose
+    from flowgen_torch.warpfields import generator as wg
+
+    root = root_key(cfg.seed, dev)
+    f15, full = bank_doubling_inputs(cfg, dev)
     worst = 0.0
     for label, f in (("768^2, 8 fields", f15), ("1536^2, 8 fields", full)):
         gk, lk = one_doubling(f)
@@ -724,19 +785,67 @@ def phase_mode9_scene(cfg, atlas, aux, card, dev):
     return 4 * s, plain, worst, slabs
 
 
-def grid_sample_ms(planes, disp):
-    """Time of torch.nn.functional.grid_sample (bilinear, border padding,
+def grid_sample_call(planes, disp):
+    """torch.nn.functional.grid_sample (bilinear, border padding,
     align_corners=True) computing the same clamped row lerp as hwarp_rows on
-    the same planes; also its largest difference from the kernel's result."""
+    the same planes."""
     M, C, R, Sp = planes.shape
     xs = torch.arange(Sp, dtype=torch.float32, device=planes.device)
     ys = torch.arange(R, dtype=torch.float32, device=planes.device)
     gx = (xs + disp) * (2.0 / (Sp - 1)) - 1.0
     gy = (ys[:, None] * (2.0 / (R - 1)) - 1.0).expand(M, R, Sp)
     grid = torch.stack([gx, gy], dim=-1)
-    call = lambda: torch.nn.functional.grid_sample(
+    return lambda: torch.nn.functional.grid_sample(
         planes, grid, mode="bilinear", padding_mode="border", align_corners=True)
-    return event_ms(call), call()
+
+
+def hwarp_bytes(planes, disp):
+    """Every plane element read once and written once; the C channels of a
+    field share one displacement row, read once."""
+    return 4.0 * (2 * planes.numel() + disp.numel())
+
+
+def epoch_hwarp(cfg, dev, card):
+    """Every hwarp_rows launch of one bank epoch of the mode-9 path
+    (make_bank_and_aux at the configuration's size), each against its plain
+    version on the same inputs (max difference 0 expected) and each timed
+    alone with a cold L2 beside grid_sample on the same planes; the summed
+    ms and bound."""
+    from flowgen_torch.random.streams import root_key
+    from flowgen_torch.warpfields import compose
+    from flowgen_torch.warpfields import generator as wg
+
+    calls, restore = record_launches(compose, "hwarp_rows")
+    try:
+        wg.make_bank_and_aux(root_key(cfg.seed, dev), 0, cfg)
+    finally:
+        restore()
+    res = {"launches": len(calls), "ms": 0.0, "library_ms": 0.0,
+           "bound_ms": 0.0, "max_abs_err": 0.0, "shapes": {}}
+    for (planes, disp), _ in calls:
+        k = compose.hwarp_rows(planes, disp)
+        with compose.plain_versions():
+            p = compose.hwarp_rows(planes, disp)
+        res["max_abs_err"] = max(res["max_abs_err"],
+                                 float((k - p).abs().max()))
+        del k, p
+        res["ms"] += event_ms(lambda: compose.hwarp_rows(planes, disp),
+                              reps=3, cold=True)
+        res["library_ms"] += event_ms(grid_sample_call(planes, disp), reps=3,
+                                      cold=True)
+        res["bound_ms"] += 1e3 * hwarp_bytes(planes, disp) / PEAK_BYTES_S
+        shape = "x".join(map(str, planes.shape))
+        res["shapes"][shape] = res["shapes"].get(shape, 0) + 1
+    print(f"hwarp_rows over one bank epoch ({cfg.width}x{cfg.height}, "
+          f"launches by shape {json.dumps(res['shapes'])}): "
+          f"{res['launches']} launches, each against its plain version (max "
+          f"|d| {res['max_abs_err']}); {res['ms']:.4f} ms summed (CUDA events, "
+          f"each launch alone with a cold L2, mean of 3), grid_sample "
+          f"{res['library_ms']:.4f} ms summed, bound {res['bound_ms']:.4f} ms "
+          f"summed by bytes [{card}]")
+    if res["max_abs_err"] != 0.0 or res["launches"] != 34:
+        fail("hwarp_rows over a bank epoch: launches or values are off")
+    return res
 
 
 def phase_bank_timing(fields_by_size, card):
@@ -767,24 +876,24 @@ def phase_bank_timing(fields_by_size, card):
         gd = compose.coarse_gdisp_batch(D)
         disp = gd.contiguous()
         planes = f.contiguous()
-        h_ms = event_ms(lambda: compose.hwarp_rows(planes, disp))
+        call = lambda: compose.hwarp_rows(planes, disp)
+        h_ms, h_cold = event_ms(call), event_ms(call, cold=True)
         with compose.plain_versions():
-            hp_ms, hp = host_ms(lambda: compose.hwarp_rows(planes, disp))
-        hk = compose.hwarp_rows(planes, disp)
-        lib_ms, gs = grid_sample_ms(planes, disp)
-        # Every plane element read once and written once; the C channels of
-        # a field share one displacement row, read once.
-        h_bytes = M * S * S * (4 * C + 4 + 4 * C)
+            hp_ms, hp = host_ms(call)
+        hk = call()
+        gs = grid_sample_call(planes, disp)
+        lib_ms, lib_cold = event_ms(gs), event_ms(gs, cold=True)
         rows[size] = {
             "coarse": {"ms": c_ms, "plain_ms": cp_ms,
                        "bound_ms": 1e3 * c_bytes / PEAK_BYTES_S,
                        "max_abs_err": float((ck - cp).abs().max()),
                        "wrapper_ms": cw_ms, "wrapper_plain_ms": cwp_ms,
                        "wrapper_bound_ms": 1e3 * cw_bytes / PEAK_BYTES_S},
-            "hwarp": {"ms": h_ms, "plain_ms": hp_ms, "library_ms": lib_ms,
-                      "bound_ms": 1e3 * h_bytes / PEAK_BYTES_S,
+            "hwarp": {"ms": h_ms, "ms_cold": h_cold, "plain_ms": hp_ms,
+                      "library_ms": lib_ms, "library_ms_cold": lib_cold,
+                      "bound_ms": 1e3 * hwarp_bytes(planes, disp) / PEAK_BYTES_S,
                       "max_abs_err": float((hk - hp).abs().max()),
-                      "grid_sample_max_diff": float((gs - hk).abs().max())},
+                      "grid_sample_max_diff": float((gs() - hk).abs().max())},
         }
         rc, rh = rows[size]["coarse"], rows[size]["hwarp"]
         print(f"bank kernels at {S}^2 x {M} fields: coarse solve {c_ms:.4f} ms "
@@ -792,8 +901,9 @@ def phase_bank_timing(fields_by_size, card):
               f"max |d| {rc['max_abs_err']}); coarse_gdisp_batch whole "
               f"{cw_ms:.4f} ms (plain {cwp_ms:.1f} ms, bound "
               f"{rc['wrapper_bound_ms']:.4f} ms); hwarp_rows on {M * C * S} x "
-              f"{S} rows {h_ms:.4f} ms (plain {hp_ms:.1f} ms, grid_sample "
-              f"{lib_ms:.4f} ms, bound {rh['bound_ms']:.4f} ms by bytes, "
+              f"{S} rows {h_ms:.4f} ms, {h_cold:.4f} ms with a cold L2 (plain "
+              f"{hp_ms:.1f} ms, grid_sample {lib_ms:.4f} ms, {lib_cold:.4f} ms "
+              f"cold, bound {rh['bound_ms']:.4f} ms by bytes, "
               f"grid_sample max |d| {rh['grid_sample_max_diff']:.2e}) [{card}]")
         if rc["max_abs_err"] != 0.0 or rh["max_abs_err"] != 0.0:
             fail(f"bank kernels differ from their plain versions at {S}^2")
@@ -888,11 +998,9 @@ def phase_mode13(card, dev):
 # ---------------------------------------------------------------------------
 
 SINTEL_HW = (436, 1024)   # MPI-Sintel's frame (height, width)
-# Bytes a window pixel moves through object_window (texture, frame and flow
-# read; frame and flow written) and a sample point through polygon_coverage
-# (its two coordinates read; coverage and mask written).
-OBJECT_WINDOW_PIXEL_BYTES = 52
-POLYGON_POINT_BYTES = 16
+# Bytes a sample point moves through polygon_coverage: its two coordinates
+# read (4 each), its coverage (4) and its uint8 mask (1) written.
+POLYGON_POINT_BYTES = 13
 
 
 def sintel_cfg(**kw):
@@ -1131,24 +1239,144 @@ def record_launches(module, name):
     return calls, restore
 
 
-def object_window_work(args, kw):
-    """Bytes and float operations of one object_window launch's windows:
-    52 bytes a window pixel; every pixel evaluates every edge of its
-    polygon primitives and every ellipse primitive."""
+def _edge_pairs(ax, ay, bx, by, ylo, xlo):
+    """Per edge (arrays (e,)), the (cell row, cell column) pairs of a grid
+    of cell lower-left corners ``ylo`` (rows) x ``xlo`` (columns) whose
+    term can be non-zero: the cell row meets the edge's y-span and the cell
+    is not right of the edge. Returns the pair count per edge."""
+    ymin, ymax = np.minimum(ay, by), np.maximum(ay, by)
+    # A horizontal edge's term is 0 everywhere.
+    rows = ((ylo[None, :] < ymax[:, None])
+            & (ylo[None, :] + 1 > ymin[:, None])
+            & (ymax > ymin)[:, None]).sum(1)
+    cols = (xlo[None, :] < np.maximum(ax, bx)[:, None]).sum(1)
+    return rows.astype(np.float64) * cols
+
+
+def _ellipse_box(inv, rx, ry):
+    """Screen centre, half extents and axis ratio of the ellipse whose
+    inverse transform (2x3) and radii the window tables hold (float64)."""
+    I = np.asarray(inv, np.float64).reshape(2, 3)
+    L = np.linalg.inv(I[:, :2])
+    centre = -L @ I[:, 2]
+    lin = L * np.array([rx, ry])
+    half = np.sqrt((lin ** 2).sum(1))
+    sv = np.linalg.svd(np.diag([1.0 / rx, 1.0 / ry]) @ I[:, :2],
+                       compute_uv=False)
+    return centre, half, sv[0] / sv[1]
+
+
+# Below this blend weight a pixel's frame keeps its value whatever its
+# texel: |t - f| m < 255 / 512 < 0.5 for frames and texels in [0, 255].
+BLEND_RESIDUE = 2.0 ** -9
+
+
+def object_window_reach_bytes(args, kw):
+    """Bytes one object_window launch's windows must move, counted from
+    their coverage (the plain version's, window._window_coverage, on the
+    launch's tables; it does not depend on the planes): a pixel whose blend
+    weight m is at least BLEND_RESIDUE reads its texel (12 bytes: frame 0's
+    three channels lie in a 12-byte quad record that the memory moves
+    whole, frame 1's bilinear tap reads one record) and writes its frame
+    (12), and reads the frame as well where m < 1 (12; at m = 1 the blend
+    is the texel); with emit_flow a pixel inside the binary mask writes its
+    flow (8; the old flow is multiplied by 0). Every other pixel keeps its
+    values (the frames hold whole values in [0, 255]) and moves nothing.
+    Returns the bytes and the pixels with 0 < m < BLEND_RESIDUE (a rounding
+    residue of the exact-area sums, which the kernel reads and writes)."""
+    from flowgen_torch.ops import window
+
     edges, meta, fmeta, win = args[:4]
-    m, w = meta.cpu().numpy(), win.cpu().numpy()
-    C = (m.shape[1] - 3) // 3
-    pix = w[:, 1].astype(np.float64) * w[:, 2]
-    n_edges, n_ell = np.zeros(len(m)), np.zeros(len(m))
-    for i, row in enumerate(m):
-        for c in range(int(row[0])):
-            if row[3 + C + c]:
-                n_edges[i] += row[3 + 2 * C + c]
+    sizes = win[:, window.WIN_H:window.WIN_W + 1].cpu()
+    nbytes = residue = 0.0
+    for wh, ww in sorted({tuple(map(int, sz)) for sz in sizes}):
+        sel = ((sizes[:, 0] == wh) & (sizes[:, 1] == ww)).nonzero()[:, 0]
+        sel = sel.to(win.device)
+        e, m, f = (t.index_select(0, sel) for t in (edges, meta, fmeta))
+        px, py = window.window_grids(m[:, 2], m[:, 1], wh, ww)
+        acc_aa, acc_in = window._window_coverage(e, m, f, px, py)
+        inside = acc_in != 0
+        blend = acc_aa if kw["use_aa"] else inside.to(torch.float32)
+        hit = blend >= BLEND_RESIDUE
+        nbytes += 24.0 * float(hit.sum()) + 12.0 * float((hit & (blend < 1))
+                                                         .sum())
+        if kw["emit_flow"]:
+            nbytes += 8.0 * float(inside.sum())
+        residue += float(((blend != 0) & ~hit).sum())
+        del acc_aa, acc_in, inside, blend, hit
+    return nbytes, residue
+
+
+def object_window_work(args, kw):
+    """Bytes and float operations that one object_window launch's windows
+    need, whatever evaluates them, and the residue pixels of
+    object_window_reach_bytes: the bytes of object_window_reach_bytes;
+    45 operations per (edge, pixel) pair whose cell row meets the edge's
+    y-span and whose cell is not right of the edge (every other term is
+    exactly 0); 190 per ellipse pixel within its extent +- ELL_CULL_M in
+    rows and columns (a needle, more than ELL_CULL_ANISO times longer than
+    wide, over its whole window)."""
+    from flowgen_torch.ops.scene import ELL_CULL_M
+    from flowgen_torch.ops.window import ELL_CULL_ANISO
+
+    edges, meta, fmeta, win = (t.cpu().numpy() for t in args[:4])
+    C = (meta.shape[1] - 3) // 3
+    E = edges.shape[-1] // C
+    ops = 0.0
+    for i in range(len(meta)):
+        n_prims, x0, y0 = (int(v) for v in meta[i, :3])
+        wh, ww = int(win[i, 1]), int(win[i, 2])
+        ylo = np.arange(wh, dtype=np.float64) + y0
+        xlo = np.arange(ww, dtype=np.float64) + x0
+        for c in range(min(n_prims, C)):
+            if meta[i, 3 + C + c]:
+                ne = int(meta[i, 3 + 2 * C + c])
+                ax, ay, bx, by = (edges[i, k, c * E:c * E + ne].astype(
+                    np.float64) for k in range(4))
+                ops += OPS_EDGE_PIXEL * _edge_pairs(ax, ay, bx, by, ylo,
+                                                    xlo).sum()
+                continue
+            f = fmeta[i, 6 + 8 * c:14 + 8 * c].astype(np.float64)
+            centre, half, ratio = _ellipse_box(f[:6], f[6], f[7])
+            plo, phi = centre - half, centre + half
+            if ratio <= ELL_CULL_ANISO:
+                m = ELL_CULL_M
+                rows = ((ylo < phi[1] + m) & (ylo + 1 > plo[1] - m)).sum()
+                cols = ((xlo < phi[0] + m) & (xlo + 1 > plo[0] - m)).sum()
+                ops += OPS_ELLIPSE_PIXEL * float(rows) * float(cols)
             else:
-                n_ell[i] += 1
-    ops = float((pix * (OPS_EDGE_PIXEL * n_edges
-                        + OPS_ELLIPSE_PIXEL * n_ell)).sum())
-    return OBJECT_WINDOW_PIXEL_BYTES * float(pix.sum()), ops
+                ops += OPS_ELLIPSE_PIXEL * float(wh) * ww
+    nbytes, residue = object_window_reach_bytes(args, kw)
+    return nbytes, float(ops), residue
+
+
+def polygon_coverage_work(pts, n_edges, px, py):
+    """Bytes and float operations one polygon_coverage launch needs: 13
+    bytes a sample point; 45 operations per (edge, point) pair whose cell
+    row meets the edge's y-span and whose cell is not right of the edge.
+    The renderer's sample grids are regular (one x per column, one y per
+    row), so the pairs are counted per row and per column."""
+    from flowgen_torch.ops.window import _closed_edges
+
+    n_edges = n_edges.reshape(-1).cpu()
+    e = _closed_edges(pts.float().cpu(), n_edges).double().numpy()
+    pxc, pyc = px.double().cpu().numpy(), py.double().cpu().numpy()
+    if not ((pxc == pxc[:, :1, :]).all() and (pyc == pyc[:, :, :1]).all()):
+        fail("polygon_coverage sample grids are not regular")
+    ops = 0.0
+    for i in range(e.shape[0]):
+        ne = int(n_edges[i])
+        ops += OPS_EDGE_PIXEL * _edge_pairs(
+            *(e[i, k, :ne] for k in range(4)), pyc[i, :, 0] - 0.5,
+            pxc[i, 0, :] - 0.5).sum()
+    return POLYGON_POINT_BYTES * float(px.numel()), float(ops)
+
+
+def bits_differ(a, b) -> int:
+    """Elements of float32 tensors ``a`` and ``b`` whose bits differ, the
+    sign of a zero aside (x + 0.0 turns -0 into +0)."""
+    return int(((a + 0.0).view(torch.int32)
+                != (b + 0.0).view(torch.int32)).sum())
 
 
 def bound_of(nbytes, ops):
@@ -1158,51 +1386,105 @@ def bound_of(nbytes, ops):
             "bytes": nbytes, "operations": ops}
 
 
-def time_object_window(calls, frames, flows, card):
-    """Per window class, the recorded launch with the most windows: CUDA
-    events over 10 launches on copies of the final planes, the plain
-    version once, the kernel against the plain version (max difference 0
-    expected), the bound."""
+def step_object_window(cfg, atlas_q, bank, card, dev):
+    """Step 0 of a windowed path (B=64, seed 0) rendered with every
+    object_window launch held against its plain version on the planes as
+    the launch found them (bit for bit, the sign of a zero aside), then
+    timed alone
+    with a cold L2 on copies of the step's final planes, with its bound.
+    Prints the step's launch count, summed ms and summed bound; returns
+    them, the largest launch of each window class (timed as well with 10
+    back-to-back launches) and the step's polygon_coverage launches."""
+    from flowgen_torch.compose.render import render_batch
     from flowgen_torch.ops import window
+    from flowgen_torch.warpfields import generator as wg
 
-    rows = {}
-    for args, kw in calls:
-        cls = tuple(kw["max_hw"])
-        if cls not in rows or args[3].shape[0] > rows[cls][0][3].shape[0]:
-            rows[cls] = (args, kw)
-    out = {}
-    for cls, (args, kw) in sorted(rows.items()):
-        fr = 1 if kw["sampled"] else 0
-        base_f, base_fl = frames[fr], flows[fr]
-        fk = base_f.clone()
-        flk = base_fl.clone() if base_fl is not None else None
-        call = lambda: window.object_window(*args[:4], fk, flk, args[6], **kw)
-        ms = event_ms(call)
-        fk, flk = base_f.clone(), (base_fl.clone() if base_fl is not None
-                                   else None)
-        call()
-        fp = base_f.clone()
-        flp = base_fl.clone() if base_fl is not None else None
+    n_slots = wg.bank_size(cfg) if bank is not None else 1
+    scenes = sample(cfg, 0, torch.arange(cfg.batch_size), dev, n_slots)
+    kernel = window.object_window
+    calls = []
+
+    def checked(*args, **kw):
+        frames, flow = args[4], args[5]
+        fp = frames.clone()
+        flp = flow.clone() if kw["emit_flow"] else flow
         with window.plain_versions():
-            p_ms, _ = host_ms(lambda: window.object_window(
-                *args[:4], fp, flp, args[6], **kw))
-        err = float((fk - fp).abs().max())
-        if flk is not None:
-            err = max(err, float((flk - flp).abs().max()))
-        bd = bound_of(*object_window_work(args, kw))
+            p_ms, _ = host_ms(lambda: kernel(*args[:4], fp, flp, args[6],
+                                             **kw))
+        kernel(*args, **kw)
+        err = float((frames - fp).abs().max())
+        bits = bits_differ(frames, fp)
+        if kw["emit_flow"]:
+            err = max(err, float((flow - flp).abs().max()))
+            bits += bits_differ(flow, flp)
+        calls.append((args, kw, err, bits, p_ms))
+
+    checked.launches = kernel.launches   # the wrapper counts on this name
+    window.object_window = checked
+    pc_calls, pc_restore = record_launches(window, "polygon_coverage")
+    try:
+        out = render_batch(scenes, atlas_q, cfg, bank)
+    finally:
+        pc_restore()
+        kernel.launches = checked.launches
+        window.object_window = kernel
+    torch.cuda.synchronize()
+    flow1 = out[3] if cfg.compute_inverse_flow else None
+    planes = {0: (out[0].clone(), out[2].clone()),
+              1: (out[1].clone(), None if flow1 is None else flow1.clone())}
+    del out
+    step = {"launches": len(calls), "ms": 0.0, "bound_ms": 0.0,
+            "max_abs_err": 0.0, "bits_differ": 0, "plain_ms": 0.0,
+            "residue_px": 0.0}
+    largest = {}
+    for args, kw, err, bits, p_ms in calls:
+        f, fl = planes[1 if kw["sampled"] else 0]
+        call = functools.partial(kernel, *args[:4], f, fl, args[6], **kw)
+        ms = event_ms(call, reps=3, cold=True)
+        nbytes, ops, residue = object_window_work(args, kw)
+        bd = bound_of(nbytes, ops)
+        step["ms"] += ms
+        step["residue_px"] += residue
+        step["bound_ms"] += bd["bound_ms"]
+        step["plain_ms"] += p_ms
+        step["max_abs_err"] = max(step["max_abs_err"], err)
+        step["bits_differ"] += bits
+        cls = f"{kw['max_hw'][0]}x{kw['max_hw'][1]}"
         n = args[3].shape[0]
-        out[f"{cls[0]}x{cls[1]}"] = {"ms": ms, "plain_ms": p_ms,
-                                      "max_abs_err": err, "windows": n,
-                                      "frame": fr, **bd}
-        print(f"object_window, {n} windows of class {cls[0]}x{cls[1]} (frame "
-              f"{fr}): {ms:.4f} ms per launch (CUDA events, 10 launches); "
-              f"plain version {p_ms:.1f} ms; bound {bd['bound_ms']:.4f} ms by "
-              f"{bd['bound_by']} ({bd['bytes']:.4e} bytes, "
-              f"{bd['operations']:.4e} float ops); max |d| vs plain {err} "
-              f"[{card}]")
-        if err != 0.0:
-            fail("object_window differs from its plain version")
-    return out
+        if cls not in largest or n > largest[cls]["windows"]:
+            largest[cls] = {"windows": n, "frame": int(kw["sampled"]),
+                            "ms_cold": ms, "plain_ms": p_ms,
+                            "max_abs_err": err, "residue_px": residue,
+                            "call": call, **bd}
+    for cls, row in sorted(largest.items()):
+        row["ms"] = event_ms(row.pop("call"))
+        print(f"object_window, the largest launch of class {cls} in step 0 "
+              f"(mode {cfg.mode}): {row['windows']} windows (frame "
+              f"{row['frame']}): {row['ms']:.4f} ms per launch (CUDA events, "
+              f"10 launches back to back), {row['ms_cold']:.4f} ms with a "
+              f"cold L2; plain version {row['plain_ms']:.1f} ms; bound "
+              f"{row['bound_ms']:.4f} ms by {row['bound_by']} "
+              f"({row['bytes']:.4e} bytes, {row['operations']:.4e} float "
+              f"ops; {row['residue_px']:.0f} pixels with a blend residue "
+              f"under 2^-9 not counted); max |d| vs plain "
+              f"{row['max_abs_err']} [{card}]")
+    step["share_of_bound"] = step["bound_ms"] / step["ms"]
+    print(f"object_window over step 0 of windowed mode {cfg.mode} "
+          f"({cfg.width}x{cfg.height}, B={cfg.batch_size}): "
+          f"{step['launches']} launches, each against its plain version "
+          f"(max |d| {step['max_abs_err']}, {step['bits_differ']} values "
+          f"with other bits, the sign of a zero aside); {step['ms']:.4f} ms "
+          f"summed "
+          f"(CUDA events, each launch alone with a cold L2, mean of 3), bound "
+          f"{step['bound_ms']:.4f} ms summed ({step['share_of_bound']:.3f} of "
+          f"it; {step['residue_px']:.0f} pixels with a blend residue under "
+          f"2^-9 not counted); plain versions {step['plain_ms']:.1f} ms [{card}]")
+    if step["max_abs_err"] != 0.0 or step["bits_differ"]:
+        fail(f"object_window differs from its plain version in a mode-"
+             f"{cfg.mode} step")
+    if step["share_of_bound"] > 1.0:
+        fail("object_window reads above its bound: the count is wrong")
+    return step, largest, pc_calls
 
 
 def time_polygon_coverage(calls, card):
@@ -1218,10 +1500,7 @@ def time_polygon_coverage(calls, card):
     p_ms, (pa, pi) = host_ms(lambda: window.polygon_coverage_plain(
         pts, n_edges, px, py))
     err = max(float((ka - pa).abs().max()), float((ki != pi).float().max()))
-    npix = px[0].numel()
-    pairs = float(n_edges.double().sum()) * npix
-    bd = bound_of(POLYGON_POINT_BYTES * float(px.numel()),
-                  OPS_EDGE_PIXEL * pairs)
+    bd = bound_of(*polygon_coverage_work(pts, n_edges, px, py))
     print(f"polygon_coverage, {px.shape[0]} outlines over {tuple(px.shape[1:])}"
           f" windows: {ms:.4f} ms per launch (CUDA events, 10 launches); plain "
           f"version {p_ms:.1f} ms; bound {bd['bound_ms']:.4f} ms by "
@@ -1234,35 +1513,29 @@ def time_polygon_coverage(calls, card):
 
 
 def phase_window_timing(atlas_q, bank9, card, dev):
-    """Phase 15: the window kernels at the main paths' shapes, from the
-    launches of one B=64 render of step 0 (object_window: mode 7;
-    polygon_coverage: mode 9, whose deforming objects take it)."""
-    from flowgen_torch.compose.render import render_batch
+    """Phase 15: the window kernels at the main paths' shapes, over step 0
+    of the windowed mode-7 and mode-9 paths (object_window: every launch;
+    polygon_coverage: the mode-9 step's largest launch)."""
+    ow7, largest7, _ = step_object_window(sintel_cfg(mode=7), atlas_q, None,
+                                          card, dev)
+    ow9, _, pc_calls = step_object_window(sintel_cfg(mode=9), atlas_q, bank9,
+                                          card, dev)
+    if not pc_calls:
+        fail("the mode-9 render launched no polygon_coverage")
+    pc = time_polygon_coverage(pc_calls, card)
     from flowgen_torch.ops import window
 
-    cfg7 = sintel_cfg(mode=7)
-    scenes = sample(cfg7, 0, torch.arange(cfg7.batch_size), dev)
-    calls, restore = record_launches(window, "object_window")
-    try:
-        out = render_batch(scenes, atlas_q, cfg7)
-    finally:
-        restore()
-    ow = time_object_window(calls, (out[0], out[1]), (out[2], None), card)
-    del out
-    cfg9 = sintel_cfg(mode=9)
-    from flowgen_torch.warpfields import generator as wg
-
-    scenes = sample(cfg9, 0, torch.arange(cfg9.batch_size), dev,
-                    wg.bank_size(cfg9))
-    calls, restore = record_launches(window, "polygon_coverage")
-    try:
-        render_batch(scenes, atlas_q, cfg9, bank9)
-    finally:
-        restore()
-    if not calls:
-        fail("the mode-9 render launched no polygon_coverage")
-    pc = time_polygon_coverage(calls, card)
-    return ow, pc
+    step = {"launches": len(pc_calls), "ms": 0.0, "bound_ms": 0.0}
+    for args, _ in pc_calls:
+        step["ms"] += event_ms(functools.partial(window.polygon_coverage,
+                                                 *args), reps=3, cold=True)
+        step["bound_ms"] += bound_of(*polygon_coverage_work(*args))["bound_ms"]
+    print(f"polygon_coverage over step 0 of windowed mode 9: "
+          f"{step['launches']} launches, {step['ms']:.4f} ms summed (CUDA "
+          f"events, each launch alone with a cold L2, mean of 3), bound "
+          f"{step['bound_ms']:.4f} ms summed [{card}]")
+    pc["step_mode9"] = step
+    return {"mode7": ow7, "mode9": ow9, "largest": largest7}, pc
 
 
 def phase_affine_resample(card, dev):
@@ -1332,7 +1605,8 @@ def phase_windowed(card, dev):
     # ---- 15: kernel timing at the main paths' shapes ----
     ow, pc = phase_window_timing(atlas_q, bank9, card, dev)
     ar = phase_affine_resample(card, dev)
-    small, full = ow["192x256"], ow[f"{SINTEL_HW[0]}x{SINTEL_HW[1]}"]
+    small = ow["largest"]["192x256"]
+    full = ow["largest"][f"{SINTEL_HW[0]}x{SINTEL_HW[1]}"]
     no_lib = ("no single PyTorch call computes it")
     return [
         {
@@ -1340,14 +1614,15 @@ def phase_windowed(card, dev):
             "source": "flowgen_torch/csrc/window.cu",
             "replaces": "flowgen/ops/pallas_raster.py:335",
             "launches": r7["launches"]["object_window"],
-            "max_abs_err": max(worst, small["max_abs_err"],
-                               full["max_abs_err"]),
+            "max_abs_err": max(worst, ow["mode7"]["max_abs_err"],
+                               ow["mode9"]["max_abs_err"]),
             "ms": small["ms"], "plain_ms": small["plain_ms"],
             "bound_ms": small["bound_ms"], "bound_by": small["bound_by"],
             "library_ms": None, "library": no_lib,
             "path": "windowed mode 7, 1024x436, B=64",
             "shape": f"{small['windows']} windows of 192x256",
-            "full_frame": full,
+            "full_frame": full, "step_mode7": ow["mode7"],
+            "step_mode9": ow["mode9"],
             "mode9_launches": r9["launches"]["object_window"],
         },
         {
@@ -1464,6 +1739,7 @@ def main():
           "max_abs_err": max(worst9, g["max_abs_err"], g64["max_abs_err"])}
     bt = phase_bank_timing((("768", bank["f768"]), ("1536", bank["f1536"])), card)
     h768, h1536 = bt["768"]["hwarp"], bt["1536"]["hwarp"]
+    h_epoch = epoch_hwarp(cfg, dev, card)
     c768, c1536 = bt["768"]["coarse"], bt["1536"]["coarse"]
     bank_err = bank["max_abs_err"]
     del bank, slabs, args, k_out, p_out
@@ -1510,12 +1786,13 @@ def main():
             "replaces": "flowgen/warpfields/pallas_fields.py:174",
             "launches": counts["hwarp_rows"],
             "max_abs_err": max(bank_err, sintel_bank_err,
-                               h768["max_abs_err"], h1536["max_abs_err"]),
+                               h768["max_abs_err"], h1536["max_abs_err"],
+                               h_epoch["max_abs_err"]),
             "ms": h768["ms"], "plain_ms": h768["plain_ms"],
             "bound_ms": h768["bound_ms"], "bound_by": "bytes",
             "library_ms": h768["library_ms"],
             "shape": "12288 x 768 rows (32 of the 34 launches of an epoch)",
-            "at_1536": h1536,
+            "at_1536": h1536, "epoch": h_epoch,
         },
     ] + win_rows
     stamp("phases 12-15 (windowed) done")

@@ -11,7 +11,8 @@
 // positions (all rows of a field x 128 lanes for the solve, row_tile x 128
 // for the warp) a band of `scan` 128-lane source tiles starts at the tile of
 // the block's smallest left tap, and a tap outside it reads 0. So one CTA
-// owns one block: it reduces the block's smallest tap index, then computes.
+// (a cluster for the warp) owns one block: it reduces the block's smallest
+// tap index, then computes.
 // The bank's 17 doublings are chaotic, so the lerp keeps the JAX package's
 // det_lerp exactly (p0 + round((p1 - p0) * t)), and the file is compiled
 // with -fmad=false.
@@ -19,12 +20,21 @@
 // What bounds them. hwarp_rows must move 4 + 4 + 4/C bytes an element of
 // (M, C, R, Sp) planes (read the plane, write the result, and read the
 // displacement row that the field's C channels share once: 10 bytes for the
-// bank's C = 2) and does a few operations, so bytes bound it; this version
-// reads the displacement once per channel and twice per pass (the block
-// minimum, then the lerp), 16 bytes an element. The coarse solve is a small
-// sequential fixed point (9 lookups along each coarse column): one CTA per
-// (field, 128-lane tile), latency-bound, a small part of a doubling.
+// bank's C = 2) and does a few operations, so bytes bound it. What keeps a
+// straightforward version off that bound: one CTA per channel block reads
+// the shared displacement once per channel, the block minimum is a barrier
+// with no load in flight across it, and large CTAs quantise into partial
+// waves (1.09 waves of 1024-thread CTAs at 768^2). So this one lerps all C
+// channel blocks of a field from one displacement row where the blocks
+// allow it (read for the minimum, then again from cache for the lerp),
+// splits each block over a cluster of small CTAs that share the band
+// minimum through distributed shared memory, and keeps a thread's rows and
+// four coalesced lanes unrolled so their loads are in flight together.
+// The coarse solve is a small sequential fixed point (9 lookups along each
+// coarse column): one CTA per (field, 128-lane tile), latency-bound, a
+// small part of a doubling.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -109,32 +119,109 @@ __global__ void __launch_bounds__(kLanes* kRowsPerPass)
 }
 
 // out[g, x] = lerp of row g of `src` at x + disp[row(g), x], clamped to the
-// row, over G stacked rows of width Sp. Row g = (m * C + c) * R + r of the
-// (M, C, R, Sp) planes shares displacement row m * R + r. Block (128, 8);
-// grid (Sp / 128, G / row_tile).
-__global__ void __launch_bounds__(kLanes* kRowsPerPass)
+// row, over the G = M * C * R stacked rows (width Sp) of (M, C, R, Sp)
+// planes; row g = (m * C + c) * R + r reads displacement row m * R + r.
+//
+// The band is defined per block of row_tile stacked rows x 128 lanes. A
+// unit of work is one band block, or, when R % row_tile == 0, the C blocks
+// of one field that share their displacement rows (and so their positions
+// and their band): those are lerped together from one pass over the
+// displacement. When R % row_tile != 0 a block straddles two channels and
+// keeps the stacked definition. A unit is split over a cluster of
+// kHwarpCluster CTAs of 256 threads (32 lanes x 8 rows, 4 lanes a thread 32
+// apart, ITEMS rows a thread): each reduces the smallest left tap of its
+// rows, the cluster combines the partial minima through distributed shared
+// memory, then each CTA lerps its rows, reading the displacement again
+// (from cache). Grid: one cluster per unit.
+constexpr int kHwarpRows = 8;       // blockDim.y
+constexpr int kHwarpLaneStep = 32;  // blockDim.x; a thread's 4 lanes are 32 apart
+constexpr int kHwarpCluster = 8;    // CTAs sharing one unit's band minimum
+
+template <int ITEMS>
+__global__ void __launch_bounds__(kHwarpLaneStep* kHwarpRows)
     hwarp_rows_kernel(const float* __restrict__ src,
                       const float* __restrict__ disp, float* __restrict__ out,
-                      int Sp, int CR, int R, int row_tile, int scan) {
-  __shared__ int smin;
-  const int x = blockIdx.x * kLanes + threadIdx.x;
-  const int g0 = blockIdx.y * row_tile;
-  const float xf = (float)x;
-  int m = INT_MAX;
-  for (int i = threadIdx.y; i < row_tile; i += kRowsPerPass) {
-    const int g = g0 + i;
-    const size_t drow = (size_t)(g / CR) * R + (g % R);
-    m = min(m, left_tap(__fadd_rn(xf, __ldg(disp + drow * Sp + x)), Sp));
+                      int Sp, int C, int R, int scan, int merged) {
+  constexpr int K = kHwarpCluster;
+  constexpr int rows = ITEMS * kHwarpRows;   // stacked (or field) rows a CTA
+  constexpr int row_tile = K * rows;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  __shared__ int s_warp_min[kHwarpRows];
+  __shared__ int s_part;
+  const int rank = (int)cluster.block_rank();
+  const int tx = threadIdx.x;
+  const int ty = threadIdx.y;
+  const int lane_tiles = Sp / kLanes;
+  const int blocks_per_field = R / row_tile;
+  const int CR = C * R;
+  const int unit = blockIdx.x / K;
+  const int grp = unit / lane_tiles;
+  const int x = (unit % lane_tiles) * kLanes + tx;
+  // Row i of this CTA: displacement row drow_of(i); output rows orow +
+  // c * R for the C channels of a merged unit, orow alone otherwise.
+  const int first = rank * rows;
+  int m = 0, r0 = 0;
+  if (merged) {
+    m = grp / blocks_per_field;
+    r0 = (grp % blocks_per_field) * row_tile + first;
   }
+  const int g0 = grp * row_tile + first;
+  auto drow_of = [&](int i) -> size_t {
+    if (merged) return (size_t)m * R + r0 + i;
+    const int g = g0 + i;
+    return (size_t)(g / CR) * R + (g % R);
+  };
+
+  int mn = INT_MAX;
+#pragma unroll
+  for (int q = 0; q < ITEMS; ++q) {
+    const int i = ty + kHwarpRows * q;
+    const float* d = disp + drow_of(i) * Sp + x;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float xf = (float)(x + kHwarpLaneStep * j);
+      mn = min(mn, left_tap(__fadd_rn(xf, __ldg(d + kHwarpLaneStep * j)), Sp));
+    }
+  }
+  mn = __reduce_min_sync(0xffffffffu, mn);
+  if (tx == 0) s_warp_min[ty] = mn;
+  __syncthreads();
+  if (tx == 0 && ty == 0) {
+    int v = s_warp_min[0];
+    for (int k = 1; k < kHwarpRows; ++k) v = min(v, s_warp_min[k]);
+    s_part = v;
+  }
+  cluster.sync();
+  int bmin = INT_MAX;
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    bmin = min(bmin, *cluster.map_shared_rank(&s_part, k));
   int lo, hi;
-  band_of(block_min_int(m, &smin), Sp / kLanes, scan, &lo, &hi);
-  for (int i = threadIdx.y; i < row_tile; i += kRowsPerPass) {
-    const int g = g0 + i;
-    const size_t drow = (size_t)(g / CR) * R + (g % R);
-    const float u = __fadd_rn(xf, __ldg(disp + drow * Sp + x));
-    out[(size_t)g * Sp + x] =
-        banded_lerp_clamped(src + (size_t)g * Sp, u, Sp, lo, hi);
+  band_of(bmin, lane_tiles, scan, &lo, &hi);
+
+  const int n_out = merged ? C : 1;
+#pragma unroll
+  for (int q = 0; q < ITEMS; ++q) {
+    const int i = ty + kHwarpRows * q;
+    const float* d = disp + drow_of(i) * Sp + x;
+    float uu[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      uu[j] = __fadd_rn((float)(x + kHwarpLaneStep * j),
+                        __ldg(d + kHwarpLaneStep * j));
+    const size_t orow = merged ? ((size_t)m * C * R + r0 + i) : (size_t)(g0 + i);
+    for (int c = 0; c < n_out; ++c) {
+      const size_t row = orow + (size_t)c * R;
+      const float* s = src + row * Sp;
+      float* o = out + row * Sp + x;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        o[kHwarpLaneStep * j] = banded_lerp_clamped(s, uu[j], Sp, lo, hi);
+    }
   }
+  // No CTA leaves while a peer may still read its partial minimum.
+  cluster.sync();
 }
 
 }  // namespace flowgen
@@ -150,14 +237,46 @@ extern "C" int flowgen_coarse_solve(const float* dy, const float* dx,
   return (int)cudaGetLastError();
 }
 
+namespace {
+
+template <int ITEMS>
+int launch_hwarp(const float* src, const float* disp, float* out, int G,
+                 int Sp, int C, int R, int scan, cudaStream_t stream) {
+  using namespace flowgen;
+  constexpr int row_tile = kHwarpCluster * ITEMS * kHwarpRows;
+  const int merged = R % row_tile == 0;
+  const int groups = merged ? (G / C) / row_tile : G / row_tile;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kHwarpCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cfg.gridDim = dim3(kHwarpCluster * groups * (Sp / kLanes));
+  cfg.blockDim = dim3(kHwarpLaneStep, kHwarpRows);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, hwarp_rows_kernel<ITEMS>, src,
+                                     disp, out, Sp, C, R, scan, merged);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 extern "C" int flowgen_hwarp_rows(const float* src, const float* disp,
                                   float* out, int G, int Sp, int CR, int R,
                                   int row_tile, int scan, void* stream) {
-  if (Sp % flowgen::kLanes || G % row_tile || row_tile % flowgen::kRowsPerPass)
+  using namespace flowgen;
+  if (Sp % kLanes || R <= 0 || CR % R || G % CR || G % row_tile)
     return (int)cudaErrorInvalidValue;
-  const dim3 block(flowgen::kLanes, flowgen::kRowsPerPass);
-  const dim3 grid(Sp / flowgen::kLanes, G / row_tile);
-  flowgen::hwarp_rows_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      src, disp, out, Sp, CR, R, row_tile, scan);
-  return (int)cudaGetLastError();
+  const int C = CR / R;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (row_tile) {
+    case 128: return launch_hwarp<2>(src, disp, out, G, Sp, C, R, scan, s);
+    case 256: return launch_hwarp<4>(src, disp, out, G, Sp, C, R, scan, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

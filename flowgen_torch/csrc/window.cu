@@ -10,29 +10,39 @@
 // The TPU kernels run once per object window with the window in VMEM and the
 // tables in SMEM. Here one launch takes a batch of windows, one per sample
 // (the renderer batches windows of one painter rank, which lie in different
-// samples, so painter's order holds per pixel): one CTA per (window, 8x32
-// tile), the window's tables staged in shared memory, one pixel per thread.
-// object_window reads and writes the frame and flow planes in place at the
-// window's origin, and reads its texture straight from the quad-packed atlas:
-// frame 0 copies the object's centre crop, frame 1 samples the crop at the
-// motion-inverse positions with the reflect fold (the JAX renderer's XLA
-// sample_bilinear_quad, here inside the kernel).
+// samples, so painter's order holds per pixel and no two CTAs write one
+// pixel). object_window reads and writes the frame and flow planes in place
+// at the window's origin, and reads its texture straight from the
+// quad-packed atlas: frame 0 copies the object's centre crop, frame 1
+// samples the crop at the motion-inverse positions with the reflect fold
+// (the JAX renderer's XLA sample_bilinear_quad, here inside the kernel).
 //
-// Both are bound by operations on this card: a window pixel evaluates about
-// 45 float operations for each edge of each polygon primitive (190 for an
-// ellipse) against 52 bytes of planes (object_window) or 16 bytes of grids
-// and outputs (polygon_coverage). So the edge table sits in shared memory,
-// the edge loop reads no device memory, and each pixel's planes are read
-// and written once. The loops are not culled by rows as the TPU kernel's
-// blocked variant is; that and splitting a pixel's edges across threads are
-// later work.
+// What bounds them. A window pixel evaluates about 45 float operations for
+// each edge of each polygon primitive (190 for an ellipse) against at most
+// 52 bytes of planes (object_window) or 13 bytes of grids and outputs
+// (polygon_coverage). Evaluated densely that is operations; but most
+// windows are full frames around objects that cover a small part of them,
+// and most (edge, pixel) terms are exactly +-0: every row outside the
+// edge's y-span, every cell right of the edge. object_window therefore
+// works on 8 x 128 tiles and evaluates only the terms that can be non-zero
+// (the culls below), shares each edge's row terms across a row's pixels,
+// stages only the surviving edges with their pixel-independent constants
+// (not the whole padded table), and leaves the planes of a pixel group
+// untouched when nothing reached it; what remains is the surviving terms'
+// arithmetic, the I/O of the pixels the object reaches, and a prologue per
+// tile (the tables' staging and two barriers per polygon primitive) that
+// every tile of the largest window pays, reached or not.
+// polygon_coverage is still the dense loop, one sample point per thread.
 //
 // Both sum a polygon's edges 0..n_edges-1 in order, as the dense
-// _area_accumulate does; coverage.cuh:edge_contrib is that loop body for a
-// cell whose lower-left corner is (xlo, ylo) = (centre - 0.5). The file is
+// _area_accumulate does, one pixel's sum on one thread (skipped terms are
+// +-0); coverage.cuh:edge_contrib is that loop body for a cell whose
+// lower-left corner is (xlo, ylo) = (centre - 0.5), and object_window splits
+// it into its row and column parts with the same expressions. The file is
 // compiled with -fmad=false and keeps the JAX order of operations.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include "coverage.cuh"
@@ -91,11 +101,114 @@ __device__ __forceinline__ void sample_quad(const uint8_t* __restrict__ atlas,
   }
 }
 
+// Culls. Each is exact: it skips only terms that are +-0 (or an ellipse
+// coverage that is 0) for the cells it skips, and a pixel's area, a sum
+// from +0 in edge order, is never -0, so adding +-0 leaves it unchanged.
+//  * Edge rows: with ylo >= max(ay, by) + kEdgeMargin or ylo + 1 <= min(ay,
+//    by) - kEdgeMargin both r0 and r1 lie beyond the same end of [0, 1]
+//    (or inv_dy is 0), so ta == tb and every piece of the integral is 0
+//    (pallas_raster.py:_area_accumulate_blocked culls the same rows).
+//  * Edge columns: with xlo >= max(ax, bx) + kEdgeMargin the cell lies right
+//    of the edge: p == q at ta or tb and the remaining piece's weight, ga
+//    or gb = clip(x(t) - xlo, 0, 1), is 0.
+//  * Ellipses: a cell ell_cull_m px beyond the ellipse's extent lies outside
+//    its sector chord's half-plane while the 100-gon's sagitta is under a
+//    pixel (ops/scene.py:ELL_CULL_M, ELL_R_MAX), in rows as the TPU kernel
+//    culls and, by the same argument, in columns, for ellipses no more than
+//    ell_aniso times longer than wide (a needle's chords reach further:
+//    tests/test_torch_cull.py). Both come from the launch (ops/window.py
+//    owns the policy). The extent is recovered from the stored inverse
+//    transform, so kEllSlack more is kept, and only well-conditioned
+//    ellipses under kEllRCull px are culled.
+// A pixel group none of whose terms survived has m = +0, and the kernel
+// neither reads nor writes it. That equals the dense blend for whole-valued
+// frames (rintf(f * 1 + t * 0) = f; the renderer's frames hold whole
+// values) up to the sign of a zero: where a frame or flow value is -0 the
+// dense form may write +0 (-0 + +0), the kernel leaves -0.
+constexpr int kOwGroups = 4;                        // 32-pixel groups a row
+constexpr int kOwCols = 32 * kOwGroups;             // tile width
+constexpr float kEdgeMargin = 2.0f;
+constexpr float kEllSlack = 1.0f;
+constexpr float kEllRCull = 2000.0f;   // under ELL_R_MAX = 2026.6
+constexpr float kEllCondCull = 64.0f;  // |L|_F |L^-1|_F of a culled ellipse
+constexpr int kEll = 16;               // floats of an ellipse record
+
+// Pixel-independent terms of edge (a -> b) as coverage.cuh:edge_contrib
+// computes them, and its cuts: rec[0] = (ax, ay, dx, dy), rec[1] = (inv_dx,
+// inv_dy, 0.5 dx, xcut), rec[2] = (ycut_lo, ycut_hi, -, -). An edge with a
+// NaN endpoint is never cut.
+__device__ __forceinline__ void edge_record(float ax, float ay, float bx,
+                                            float by, float4 rec[3]) {
+  const float dx = bx - ax;
+  const float dy = by - ay;
+  const float eps = 0x1.197998p-40f;  // float32(1e-12)
+  const float inv_dy = fabsf(dy) > eps ? 1.0f / dy : 0.0f;
+  const float inv_dx = fabsf(dx) > eps ? 1.0f / dx : 0.0f;
+  float xcut = fmaxf(ax, bx) + kEdgeMargin;
+  float ylc = fminf(ay, by) - kEdgeMargin;
+  float yhc = fmaxf(ay, by) + kEdgeMargin;
+  if (isnan(ax) || isnan(ay) || isnan(bx) || isnan(by)) {
+    xcut = yhc = INFINITY;
+    ylc = -INFINITY;
+  }
+  rec[0] = make_float4(ax, ay, dx, dy);
+  rec[1] = make_float4(inv_dx, inv_dy, 0.5f * dx, xcut);
+  rec[2] = make_float4(ylc, yhc, 0.0f, 0.0f);
+}
+
+// An ellipse primitive's record from its fmeta row f (inverse 2x3, rx, ry):
+// f, the Jacobian over the radii, and its cull box [xlo, xhi] x [ylo, yhi]
+// in cell lower-left coordinates (infinite when it is not culled): cells
+// ell_cull_m (+ kEllSlack) px beyond its extent, for axis ratios up to
+// ell_aniso.
+__device__ __forceinline__ void ellipse_record(const float* f, float* e,
+                                               float ell_cull_m,
+                                               float ell_aniso) {
+  const float i00 = f[0], i01 = f[1], i02 = f[2];
+  const float i10 = f[3], i11 = f[4], i12 = f[5];
+  const float rx_e = f[6], ry_e = f[7];
+  for (int k = 0; k < 8; ++k) e[k] = f[k];
+  e[8] = i00 / rx_e;
+  e[9] = i01 / rx_e;
+  e[10] = i10 / ry_e;
+  e[11] = i11 / ry_e;
+  // The forward transform L = I^-1, centre -L i, half extents.
+  const float det = i00 * i11 - i01 * i10;
+  const float l00 = i11 / det, l01 = -i01 / det;
+  const float l10 = -i10 / det, l11 = i00 / det;
+  const float ecx = -(l00 * i02 + l01 * i12);
+  const float ecy = -(l10 * i02 + l11 * i12);
+  const float a = l00 * rx_e, b = l01 * ry_e, c = l10 * rx_e, d = l11 * ry_e;
+  const float hx = sqrtf(a * a + b * b);
+  const float hy = sqrtf(c * c + d * d);
+  const float r = sqrtf(a * a + b * b + c * c + d * d);
+  const float cond = sqrtf(i00 * i00 + i01 * i01 + i10 * i10 + i11 * i11) *
+                     sqrtf(l00 * l00 + l01 * l01 + l10 * l10 + l11 * l11);
+  // Axis ratio a of the screen ellipse: |J|_F^2 / |det J| = a + 1 / a.
+  const float jf = e[8] * e[8] + e[9] * e[9] + e[10] * e[10] + e[11] * e[11];
+  const float jdet = fabsf(e[8] * e[11] - e[9] * e[10]);
+  const bool round_enough =
+      jf <= (ell_aniso + 1.0f / ell_aniso) * jdet;
+  const float m = ell_cull_m + kEllSlack;
+  const bool cull = round_enough && r < kEllRCull && cond < kEllCondCull &&
+                    isfinite(ecx) &&
+                    isfinite(ecy) && isfinite(hx) && isfinite(hy);
+  e[12] = cull ? (ecx - hx) - m : -INFINITY;   // cells with xlo + 1 <= e[12]
+  e[13] = cull ? (ecx + hx) + m : INFINITY;    // cells with xlo >= e[13]
+  e[14] = cull ? (ecy - hy) - m : -INFINITY;
+  e[15] = cull ? (ecy + hy) + m : INFINITY;
+}
+
 // One object's window pass per window: coverage over its primitives with the
 // composite screen algebra, round(f (1 - m) + t m), and the flow overwrite
-// under the binary mask. Block (32, 8); grid (tiles of the largest window,
-// windows).
-__global__ void __launch_bounds__(kTileW* kTileH)
+// under the binary mask. Block (32, 8): warp w takes tile row w, lane l the
+// pixels l + 32 k, k < 4, of it. Grid (8 x 128 tiles of the largest window,
+// windows). Per polygon primitive the CTA stages the edges that survive its
+// tile's culls, in edge order; each warp culls them again for its row and
+// per 32-pixel group and shares an edge's row terms (r0, r1, ta, tb and the
+// crossings) across its pixels. At least 4 CTAs an SM (64 registers): the
+// planes' I/O is latency-bound and wants the warps.
+__global__ void __launch_bounds__(kTileW* kTileH, 4)
     object_window_kernel(const float* __restrict__ edges,
                          const int* __restrict__ meta,
                          const float* __restrict__ fmeta,
@@ -103,110 +216,189 @@ __global__ void __launch_bounds__(kTileW* kTileH)
                          const uint8_t* __restrict__ atlas, float* frames,
                          float* flow, int B, int H, int W, int T, int SH,
                          int SW, int cy0, int cx0, int tiles_x,
-                         int tex_sampled, int use_aa, int emit_flow) {
-  __shared__ float s_edges[4 * kMaxComps * kMaxEdges];
+                         int tex_sampled, int use_aa, int emit_flow,
+                         float ell_cull_m, float ell_aniso) {
+  __shared__ float4 s_rec[kMaxEdges][3];
+  __shared__ float s_ell[kMaxComps][kEll];
   __shared__ int s_meta[kMeta];
-  __shared__ float s_fmeta[kFmeta];
+  __shared__ int s_cnt[4];
   const int w = blockIdx.y;
   const int b = win[w * kWin + 0];
   const int wh = win[w * kWin + 1];
   const int ww = win[w * kWin + 2];
   const int tex = win[w * kWin + 3];
-  const int ty = blockIdx.x / tiles_x;
-  const int tx = blockIdx.x % tiles_x;
+  const int i0 = (blockIdx.x / tiles_x) * kTileH;
+  const int j0 = (blockIdx.x % tiles_x) * kOwCols;
   // Windows outside the planes or the atlas are skipped whole (the
   // renderer never passes one; this keeps every access in bounds).
-  if (ty * kTileH >= wh || tx * kTileW >= ww || b < 0 || b >= B || tex < 0 ||
-      tex >= T)
-    return;
+  if (i0 >= wh || j0 >= ww || b < 0 || b >= B || tex < 0 || tex >= T) return;
 
   const int tid = threadIdx.y * kTileW + threadIdx.x;
-  const int nthreads = kTileW * kTileH;
-  for (int i = tid; i < kMeta; i += nthreads) s_meta[i] = meta[w * kMeta + i];
-  for (int i = tid; i < kFmeta; i += nthreads) s_fmeta[i] = fmeta[w * kFmeta + i];
-  const int ce = kMaxComps * kMaxEdges;
-  for (int i = tid; i < 4 * ce; i += nthreads) s_edges[i] = edges[(size_t)w * 4 * ce + i];
+  for (int i = tid; i < kMeta; i += kTileW * kTileH) s_meta[i] = meta[w * kMeta + i];
   __syncthreads();
-
-  const int i = ty * kTileH + threadIdx.y;
-  const int j = tx * kTileW + threadIdx.x;
-  if (i >= wh || j >= ww) return;
   const int n_prims = min(s_meta[0], kMaxComps);
   const int x0 = s_meta[1];
   const int y0 = s_meta[2];
   if (y0 < 0 || x0 < 0 || y0 + wh > H || x0 + ww > W) return;
-  const float px = (float)j + (float)x0;
-  const float py = (float)i + (float)y0;
-  const float cx = px + 0.5f;
-  const float cy = py + 0.5f;
-  const float xlo = cx - 0.5f;
-  const float ylo = cy - 0.5f;
+  const float* fm = fmeta + (size_t)w * kFmeta;
+  if (tid < n_prims && s_meta[3 + kMaxComps + tid] == 0)
+    ellipse_record(fm + 6 + tid * 8, s_ell[tid], ell_cull_m, ell_aniso);
+  __syncthreads();
 
-  float acc_aa = 0.0f;
-  int acc_in = 0;
+  const int warp = threadIdx.y;
+  const int lane = threadIdx.x;
+  const int i = i0 + warp;
+  const bool row_in = i < wh;
+  // Cell lower-left corners: xlo = px, ylo = py (exact for whole px, py).
+  const float t_ylo = (float)i0 + (float)y0;
+  const float t_yhi = (float)min(i0 + kTileH, wh) + (float)y0;
+  const float t_xlo = (float)j0 + (float)x0;
+  const float ylo = (float)i + (float)y0;
+  const float ylo1 = ylo + 1.0f;
+  float xlo[kOwGroups], gx[kOwGroups], acc_aa[kOwGroups];
+  int acc_in[kOwGroups];
+#pragma unroll
+  for (int k = 0; k < kOwGroups; ++k) {
+    xlo[k] = (float)(j0 + lane + 32 * k) + (float)x0;
+    gx[k] = (float)(j0 + 32 * k) + (float)x0;   // the group's smallest xlo
+    acc_aa[k] = 0.0f;
+    acc_in[k] = 0;
+  }
+  unsigned live = 0;   // bit k: a term of pixel group k survived
+
+  const size_t ce = (size_t)kMaxComps * kMaxEdges;
   for (int c = 0; c < n_prims; ++c) {
-    float aa;
-    int ins;
+    const bool additive = s_meta[3 + c] != 0;
+    // The composite screen algebra for pixel group k and this primitive.
+    auto combine = [&](int k, float aa, int ins) {
+      if (additive) {
+        acc_aa[k] = 1.0f - (1.0f - acc_aa[k]) * (1.0f - aa);
+        acc_in[k] = max(acc_in[k], ins);
+      } else {
+        acc_aa[k] = acc_aa[k] * (1.0f - aa);
+        acc_in[k] = acc_in[k] * (1 - ins);
+      }
+    };
     if (s_meta[3 + kMaxComps + c] != 0) {
       const int ne = min(s_meta[3 + 2 * kMaxComps + c], kMaxEdges);
-      const int base = c * kMaxEdges;
-      float area = 0.0f;
-      for (int e = 0; e < ne; ++e) {
-        area = area + edge_contrib(s_edges[base + e], s_edges[ce + base + e],
-                                   s_edges[2 * ce + base + e],
-                                   s_edges[3 * ce + base + e], xlo, ylo);
+      // Stage the edges that survive the tile's culls, in edge order.
+      bool keep = false;
+      float4 rec[3];
+      if (tid < ne) {
+        const float* eb = edges + (size_t)w * 4 * ce + c * kMaxEdges + tid;
+        edge_record(eb[0], eb[ce], eb[2 * ce], eb[3 * ce], rec);
+        keep = !(t_ylo >= rec[2].y || t_yhi <= rec[2].x || t_xlo >= rec[1].w);
       }
-      area = fabsf(area);
-      aa = fminf(area, 1.0f);
-      ins = area >= 0.5f ? 1 : 0;
+      const unsigned bal = __ballot_sync(0xffffffffu, keep);
+      if (warp < 4 && lane == 0) s_cnt[warp] = __popc(bal);
+      __syncthreads();
+      const int n_kept = s_cnt[0] + s_cnt[1] + s_cnt[2] + s_cnt[3];
+      if (keep) {
+        int at = __popc(bal & ((1u << lane) - 1u));
+        for (int v = 0; v < warp; ++v) at += s_cnt[v];
+        s_rec[at][0] = rec[0];
+        s_rec[at][1] = rec[1];
+        s_rec[at][2] = rec[2];
+      }
+      __syncthreads();
+      float area[kOwGroups];
+#pragma unroll
+      for (int k = 0; k < kOwGroups; ++k) area[k] = 0.0f;
+      for (int e = 0; e < n_kept && row_in; ++e) {
+        const float4 cut = s_rec[e][2];
+        if (ylo >= cut.y || ylo1 <= cut.x) continue;
+        const float4 r0v = s_rec[e][0];
+        const float4 r1v = s_rec[e][1];
+        const float ax = r0v.x, ay = r0v.y, dx = r0v.z, dy = r0v.w;
+        const float inv_dx = r1v.x, inv_dy = r1v.y, hdx = r1v.z;
+        const float r0 = (ylo - ay) * inv_dy;
+        const float r1 = (ylo1 - ay) * inv_dy;
+        const float ta = clipf(fminf(r0, r1), 0.0f, 1.0f);
+        const float tb = clipf(fmaxf(r0, r1), 0.0f, 1.0f);
+        const float xta = ax + ta * dx;
+        const float xtb = ax + tb * dx;
+#pragma unroll
+        for (int k = 0; k < kOwGroups; ++k) {
+          if (gx[k] >= r1v.w) continue;
+          live |= 1u << k;
+          const float xl = xlo[k];
+          const float s0 = (xl - ax) * inv_dx;
+          const float s1 = ((xl + 1.0f) - ax) * inv_dx;
+          const float smin = fminf(s0, s1);
+          const float smax = fmaxf(s0, s1);
+          const float hmid = ax - xl;
+          const float p = clipf(smin, ta, tb);
+          const float q = clipf(smax, ta, tb);
+          const float ga = clipf(xta - xl, 0.0f, 1.0f);
+          const float gb = clipf(xtb - xl, 0.0f, 1.0f);
+          const float mid = hmid + (p + q) * hdx;
+          const float integral =
+              (ga * (p - ta) + mid * (q - p)) + gb * (tb - q);
+          area[k] = area[k] + dy * integral;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kOwGroups; ++k) {
+        const float a = fabsf(area[k]);
+        combine(k, fminf(a, 1.0f), a >= 0.5f ? 1 : 0);
+      }
     } else {
-      const float* f = s_fmeta + 6 + c * 8;
-      const float rx_e = f[6];
-      const float ry_e = f[7];
-      const float ux = ((f[0] * cx + f[1] * cy) + f[2]) / rx_e;
-      const float uy = ((f[3] * cx + f[4] * cy) + f[5]) / ry_e;
-      aa = ellipse_chord_coverage(ux, uy, f[0] / rx_e, f[1] / rx_e,
-                                  f[3] / ry_e, f[4] / ry_e);
-      ins = aa >= 0.5f ? 1 : 0;
-    }
-    if (s_meta[3 + c] != 0) {
-      acc_aa = 1.0f - (1.0f - acc_aa) * (1.0f - aa);
-      acc_in = max(acc_in, ins);
-    } else {
-      acc_aa = acc_aa * (1.0f - aa);
-      acc_in = acc_in * (1 - ins);
+      const float* e = s_ell[c];
+      const bool rows_live = row_in && !(ylo >= e[15] || ylo1 <= e[14]);
+#pragma unroll
+      for (int k = 0; k < kOwGroups; ++k) {
+        float aa = 0.0f;
+        if (rows_live && !(gx[k] >= e[13] || gx[k] + 32.0f <= e[12])) {
+          live |= 1u << k;
+          const float cx = xlo[k] + 0.5f;
+          const float cy = ylo + 0.5f;
+          const float ux = ((e[0] * cx + e[1] * cy) + e[2]) / e[6];
+          const float uy = ((e[3] * cx + e[4] * cy) + e[5]) / e[7];
+          aa = ellipse_chord_coverage(ux, uy, e[8], e[9], e[10], e[11]);
+        }
+        combine(k, aa, aa >= 0.5f ? 1 : 0);
+      }
     }
   }
+  if (!row_in) return;
 
-  const bool inside = acc_in != 0;
-  const float m = use_aa ? acc_aa : (inside ? 1.0f : 0.0f);
+  float mm[6];
+#pragma unroll
+  for (int q = 0; q < 6; ++q) mm[q] = fm[q];
+  const float py = ylo;
   const int gy = y0 + i;
-  const int gx = x0 + j;
-  float t[3];
-  if (tex_sampled) {
-    const float* mm = s_fmeta;
-    const float sx = (mm[0] * px + mm[1] * py) + mm[2];
-    const float sy = (mm[3] * px + mm[4] * py) + mm[5];
-    sample_quad(atlas, tex, SH, SW, cy0, cx0, H, W, sx, sy, t);
-  } else {
-    const uint8_t* row =
-        atlas + (((size_t)tex * SH + cy0 + gy) * SW + cx0 + gx) * 12;
 #pragma unroll
-    for (int ch = 0; ch < 3; ++ch) t[ch] = (float)row[ch];
-  }
-  float* fp = frames + (((size_t)b * H + gy) * W + gx) * 3;
+  for (int k = 0; k < kOwGroups; ++k) {
+    const int j = j0 + lane + 32 * k;
+    if (!(live >> k & 1u) || j >= ww) continue;
+    const bool inside = acc_in[k] != 0;
+    const float m = use_aa ? acc_aa[k] : (inside ? 1.0f : 0.0f);
+    const float px = xlo[k];
+    const int gxi = x0 + j;
+    float t[3];
+    if (tex_sampled) {
+      const float sx = (mm[0] * px + mm[1] * py) + mm[2];
+      const float sy = (mm[3] * px + mm[4] * py) + mm[5];
+      sample_quad(atlas, tex, SH, SW, cy0, cx0, H, W, sx, sy, t);
+    } else {
+      const uint8_t* row =
+          atlas + (((size_t)tex * SH + cy0 + gy) * SW + cx0 + gxi) * 12;
 #pragma unroll
-  for (int ch = 0; ch < 3; ++ch) {
-    fp[ch] = rintf(fp[ch] * (1.0f - m) + t[ch] * m);
-  }
-  if (emit_flow) {
-    const float* mm = s_fmeta;
-    const float ofx = ((mm[0] * px + mm[1] * py) + mm[2]) - px;
-    const float ofy = ((mm[3] * px + mm[4] * py) + mm[5]) - py;
-    const float mi = inside ? 1.0f : 0.0f;
-    float* fl = flow + (((size_t)b * H + gy) * W + gx) * 2;
-    fl[0] = ofx * mi + fl[0] * (1.0f - mi);
-    fl[1] = ofy * mi + fl[1] * (1.0f - mi);
+      for (int ch = 0; ch < 3; ++ch) t[ch] = (float)row[ch];
+    }
+    float* fp = frames + (((size_t)b * H + gy) * W + gxi) * 3;
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      fp[ch] = rintf(fp[ch] * (1.0f - m) + t[ch] * m);
+    }
+    if (emit_flow) {
+      const float ofx = ((mm[0] * px + mm[1] * py) + mm[2]) - px;
+      const float ofy = ((mm[3] * px + mm[4] * py) + mm[5]) - py;
+      const float mi = inside ? 1.0f : 0.0f;
+      float* fl = flow + (((size_t)b * H + gy) * W + gxi) * 2;
+      fl[0] = ofx * mi + fl[0] * (1.0f - mi);
+      fl[1] = ofy * mi + fl[1] * (1.0f - mi);
+    }
   }
 }
 
@@ -250,18 +442,21 @@ extern "C" int flowgen_object_window(const float* edges, const int* meta,
                                      int T, int SH, int SW, int cy0, int cx0,
                                      int max_wh,
                                      int max_ww, int C, int E, int tex_sampled,
-                                     int use_aa, int emit_flow, void* stream) {
+                                     int use_aa, int emit_flow,
+                                     float ell_cull_m, float ell_aniso,
+                                     void* stream) {
   using namespace flowgen;
   if (C != kMaxComps || E != kMaxEdges || N <= 0 || max_wh <= 0 ||
-      max_ww <= 0 || (emit_flow && flow == nullptr))
+      max_ww <= 0 || (emit_flow && flow == nullptr) || !(ell_aniso >= 1.0f) ||
+      !(ell_cull_m >= 0.0f))
     return (int)cudaErrorInvalidValue;
-  const int tiles_x = (max_ww + kTileW - 1) / kTileW;
+  const int tiles_x = (max_ww + kOwCols - 1) / kOwCols;
   const int tiles_y = (max_wh + kTileH - 1) / kTileH;
   const dim3 block(kTileW, kTileH);
   const dim3 grid(tiles_x * tiles_y, N);
   object_window_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
       edges, meta, fmeta, win, atlas, frames, flow, B, H, W, T, SH, SW, cy0,
-      cx0, tiles_x, tex_sampled, use_aa, emit_flow);
+      cx0, tiles_x, tex_sampled, use_aa, emit_flow, ell_cull_m, ell_aniso);
   return (int)cudaGetLastError();
 }
 

@@ -144,7 +144,7 @@ def load_window_library():
     lib = _load("flowgen_window")
     if lib.flowgen_object_window.argtypes is None:
         lib.flowgen_object_window.argtypes = [ctypes.c_void_p] * 7 + [
-            ctypes.c_int] * 16 + [ctypes.c_void_p]
+            ctypes.c_int] * 16 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
         lib.flowgen_object_window.restype = ctypes.c_int
         lib.flowgen_polygon_coverage.argtypes = [ctypes.c_void_p] * 6 + [
             ctypes.c_int] * 3 + [ctypes.c_void_p]

@@ -37,9 +37,19 @@ import torch
 
 from .._fp import div
 from . import raster
+from .scene import ELL_CULL_M
 from .texture import sample_bilinear_quad_flat
 
 WIN_B, WIN_H, WIN_W, WIN_TEX = range(4)
+
+# The culls of csrc/window.cu:object_window_kernel (the plain versions stay
+# dense; tests/test_torch_cull.py pins the facts they rest on): an edge's
+# term is skipped for cell rows 2 px beyond its y-span and for cells 2 px
+# right of it; an ellipse no more than ELL_CULL_ANISO times longer than
+# wide is skipped for cells ELL_CULL_M (ops/scene.py) + 1 px beyond its
+# extent, in rows and in columns. The kernel takes ELL_CULL_M and
+# ELL_CULL_ANISO from each launch.
+ELL_CULL_ANISO = 4.0
 
 _plain = False
 
@@ -335,7 +345,14 @@ def object_window(edges, meta, fmeta, win, frames, flow, atlas_q, *, crop,
     SW, 12) uint8; ``sampled`` selects frame 1's texture (see
     :func:`window_texture`). ``max_hw`` (the largest window) sizes the grid.
     CUDA tensors launch ``object_window_kernel`` (counted in
-    ``object_window.launches``); CPU tensors run the plain version."""
+    ``object_window.launches``); CPU tensors run the plain version.
+
+    ``frames`` must hold whole values, as the renderer's do: the kernel
+    leaves a pixel that no primitive reaches (blend weight 0) untouched,
+    which equals the plain version's ``round(f * 1 + t * 0)`` and flow
+    ``ofx * 0 + flow`` only for whole-valued frames, and then up to the sign
+    of a zero (where a frame or flow value is -0 the plain version may write
+    +0)."""
     n = win.shape[0]
     if n == 0:
         return
@@ -390,7 +407,8 @@ def _object_window_cuda(edges, meta, fmeta, win, frames, flow, atlas_q, *,
         _ptr(edges), _ptr(meta), _ptr(fmeta), _ptr(win), _ptr(atlas_q),
         _ptr(frames), _ptr(flow if emit_flow else None), n, B, H, W, T, SH,
         SW, cy0, cx0, max_hw[0], max_hw[1], C, E, int(bool(sampled)),
-        int(bool(use_aa)), int(bool(emit_flow)), _stream(frames))
+        int(bool(use_aa)), int(bool(emit_flow)), ELL_CULL_M, ELL_CULL_ANISO,
+        _stream(frames))
     if err != 0:
         raise RuntimeError(
             f"object_window kernel launch failed: CUDA error {err}")

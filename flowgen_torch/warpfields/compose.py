@@ -187,7 +187,9 @@ def hwarp_rows(planes, disp):
     |disp| <= 64 px, Sp a multiple of 128. The JAX package stacks the
     channels' rows and broadcasts the displacement (``_hwarp_rows`` on
     (M*C*R, Sp)); the kernel indexes the shared rows instead, with the same
-    row_tile x 128 band blocks over the stacked rows. CUDA tensors launch
+    row_tile x 128 band blocks over the stacked rows, and lerps the C
+    channel blocks of a field together where R is a multiple of row_tile
+    (they share their positions, so their band). CUDA tensors launch
     ``hwarp_rows_kernel`` (counted in ``hwarp_rows.launches``); CPU tensors
     run the plain version."""
     M, C, R, Sp = planes.shape

@@ -8,6 +8,7 @@ JAX nor the JAX package, so it also runs on a machine without them:
 
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -117,7 +118,7 @@ def _smooth_fields(m, s, mag, dev):
     return f * (mag / f.abs().amax(dim=(1, 2, 3), keepdim=True))
 
 
-@pytest.mark.parametrize("s", [192, 384])
+@pytest.mark.parametrize("s", [192, 384, 768])
 def test_fields_kernels_match_plain(s):
     from flowgen_torch.warpfields import compose
 
@@ -301,3 +302,108 @@ def test_affine_resample_kernel_matches_plain():
     assert res.affine_resample.launches == before + 1
     p = res.affine_resample_plain(slab, t, 16, 8, wh=192, ww=256, P=P)
     assert torch.equal(k.cpu(), p)
+
+
+def _star_edges(rng, n, cx, cy, r0, r1):
+    """(4, E) closed star outline of ``n`` edges padded with its first
+    point, as the window kernel's edge rows [ax; ay; bx; by]."""
+    E = 120
+    ang = np.sort(rng.uniform(0, 2 * np.pi, n))
+    r = rng.uniform(r0, r1, n)
+    pts = np.zeros((E, 2), np.float32)
+    pts[:n] = np.stack([cx + r * np.cos(ang), cy + r * np.sin(ang)], -1)
+    pts[n:] = pts[0]
+    b = np.roll(pts, -1, axis=0)
+    b[n - 1] = pts[0]
+    return np.stack([pts[:, 0], pts[:, 1], b[:, 0], b[:, 1]])
+
+
+def _ellipse_inverse(cx, cy, th, s):
+    """Inverse 2x3 of rotate(th), scale(s), translate(cx, cy), row-major."""
+    c, si = np.cos(th) / s, np.sin(th) / s
+    return [c, si, -(c * cx + si * cy), -si, c, si * cx - c * cy]
+
+
+def _object_window_inputs(H, W, wins, seed):
+    """Tables of windows (y0, x0, wh, ww), each in its own sample, over
+    (H, W) frames: per window 120-edge additive and subtractive stars, a
+    60-edge star reaching past the window, a round and a rotated ellipse
+    and a needle ellipse (7 primitives); a quad-packed atlas of 2
+    textures, whole-valued frames and flow."""
+    from flowgen_torch.compose.render import prepare_atlas
+
+    rng = np.random.default_rng(seed)
+    C, E = 7, 120
+    n = len(wins)
+    edges = np.zeros((n, 4, C, E), np.float32)
+    meta = np.zeros((n, 3 + 3 * C), np.int32)
+    fmeta = np.zeros((n, 6 + 8 * C), np.float32)
+    win = np.zeros((n, 4), np.int32)
+    for i, (y0, x0, wh, ww) in enumerate(wins):
+        cx, cy = x0 + ww / 2, y0 + wh / 2
+        r = max(min(wh, ww) / 3, 3.0)
+        for c, (ne, r0, r1, dx) in ((0, (120, 0.3 * r, r, 0.0)),
+                                    (2, (120, 0.1 * r, 0.4 * r, 0.2 * r)),
+                                    (5, (60, 0.5 * r, 2.5 * r, -0.3 * r))):
+            edges[i, :, c] = _star_edges(rng, ne, cx + dx, cy, r0, r1)
+            meta[i, 3 + 2 * C + c] = ne
+        meta[i, 3 + C + np.array([0, 2, 5])] = 1            # polygons
+        meta[i, 3 + np.array([0, 1, 3, 4, 5])] = 1          # additive
+        for c, (ex, ey, rx, ry, th) in (
+                (1, (cx - 0.2 * r, cy, 0.5 * r, 0.4 * r, 0.0)),
+                (3, (cx + 0.3 * r, cy - 0.2 * r, 0.8 * r, 0.3 * r, 0.7)),
+                (4, (cx, cy + 0.1 * r, 1.5 * r, 0.02 * r, 1.1)),
+                (6, (cx, cy, 0.2 * r, 0.2 * r, 0.0))):
+            fmeta[i, 6 + 8 * c:12 + 8 * c] = _ellipse_inverse(ex, ey, th, 1.1)
+            fmeta[i, 12 + 8 * c:14 + 8 * c] = rx, ry
+        meta[i, :3] = C, x0, y0
+        fmeta[i, :6] = [1.02, -0.05, 3.5, 0.04, 0.97, -2.25]
+        win[i] = i, wh, ww, i % 2
+    atlas = rng.integers(0, 256, (2, H + 16, W + 32, 3)).astype(np.uint8)
+    frames = np.round(rng.uniform(0, 255, (n, H, W, 3))).astype(np.float32)
+    flow = rng.normal(0, 2, (n, H, W, 2)).astype(np.float32)
+    T = torch.from_numpy
+    return (T(edges.reshape(n, 4, C * E)), T(meta), T(fmeta), T(win),
+            T(frames), T(flow), prepare_atlas(T(atlas)), (8, 16, H, W))
+
+
+# MPI-Sintel frames: a full-frame window, 192x256 windows touching each
+# frame edge, 1-pixel-wide and 1-pixel-tall windows.
+SINTEL_WINDOWS = [(0, 0, 436, 1024), (0, 500, 192, 256), (244, 300, 192, 256),
+                  (100, 0, 192, 256), (50, 768, 192, 256), (10, 37, 300, 1),
+                  (435, 0, 1, 1024), (0, 1023, 436, 1)]
+
+
+@pytest.mark.parametrize("sampled,use_aa,emit_flow", [
+    (False, True, True), (True, True, True), (False, False, True),
+    (True, True, False)])
+def test_object_window_kernel_matches_plain(sampled, use_aa, emit_flow):
+    """object_window with its culls against the dense plain version, bit
+    for bit up to the sign of a zero, on full-frame windows of 120-edge
+    primitives, windows at each frame edge and 1-pixel windows."""
+    from flowgen_torch.ops import window
+
+    _need_card()
+    dev = torch.device("cuda")
+    e, m, f, w, fr, fl, atlas, crop = _object_window_inputs(
+        436, 1024, SINTEL_WINDOWS, 7)
+    kw = dict(crop=crop, sampled=sampled, use_aa=use_aa, emit_flow=emit_flow,
+              max_hw=(436, 1024))
+    kf, kfl = fr.to(dev), fl.to(dev)
+    before = window.object_window.launches
+    window.object_window(e.to(dev), m.to(dev), f.to(dev), w.to(dev), kf, kfl,
+                         atlas.to(dev), **kw)
+    torch.cuda.synchronize()
+    assert window.object_window.launches == before + 1
+    pf, pfl = fr.to(dev), fl.to(dev)
+    with window.plain_versions():
+        window.object_window(e.to(dev), m.to(dev), f.to(dev), w.to(dev), pf,
+                             pfl, atlas.to(dev), **kw)
+    # Bit for bit, the sign of a zero aside (x + 0.0 turns -0 into +0): the
+    # kernel leaves unreached pixels untouched where the plain version
+    # writes -0 + +0.
+    for k, p in ((kf, pf), (kfl, pfl)):
+        assert torch.equal((k + 0.0).view(torch.int32),
+                           (p + 0.0).view(torch.int32))
+    assert not torch.equal(pf.cpu(), fr)
+    assert torch.equal(pfl.cpu(), fl) != emit_flow
