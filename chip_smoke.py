@@ -19,8 +19,12 @@ Phases (any failure exits non-zero before the final line):
      0-3 of step 0 against the plain render of phase 2), launch counts,
      ms/step, samples/s, peak memory, the device's busy share and a
      per-layer breakdown;
-  4. mode 7, the scene kernel's timing at B=64: CUDA events, the plain
-     version once, the bound from this run's inputs;
+  4. mode 7, the scene kernel's timing at B=64 on step 0's tables: CUDA
+     events, the background pass alone (bg_only) beside the full launch
+     (the difference is the object loop), the plain version once, the
+     bound from this run's inputs; the launch with inverse flow and id
+     images held against the plain version bit for bit, and the main
+     path's launch against it;
   5. mode 9, bank kernels vs plain at the main path's shapes: one doubling
      of the 8 half-lattice fields (768^2) and one of the full-size fields
      (1536^2), each through coarse_gdisp and hwarp_rows against their plain
@@ -34,7 +38,7 @@ Phases (any failure exits non-zero before the final line):
      seed=0)), 2 warm-up and 5 timed steps across bank epochs, the same
      checks and numbers as phase 3, with a bank-producer layer;
   8. mode 9, per-kernel timing at the main path's shapes (scene kernel at
-     B=64, coarse_gdisp's solve and hwarp_rows at 768^2 and 1536^2, and
+     B=64 as in phase 4, coarse_gdisp's solve and hwarp_rows at 768^2 and 1536^2, and
      coarse_gdisp_batch as a whole beside the solve): CUDA events, the plain
      versions once, the bound, and for hwarp_rows the time of
      torch.nn.functional.grid_sample on the same planes, back to back and
@@ -50,7 +54,8 @@ Phases (any failure exits non-zero before the final line):
      and numbers as phase 3 (flow1 and the masks included; samples 0-3 of
      step 0 against the plain render of phase 9, masks from its ids), with
      the masks on their own layer line;
- 11. mode 13, the scene kernel's timing at B=64 as in phase 4;
+ 11. mode 13, the scene kernel's timing and bit-for-bit check at B=64 as
+     in phase 4;
  12. the windowed renderer at MPI-Sintel's 1024x436 (frames not a multiple
      of (8, 128)): the mode-9 crop bank (3072^2 big fields) through the
      bank kernels against their plain versions; renders of B=4 through the
@@ -72,7 +77,8 @@ Phases (any failure exits non-zero before the final line):
      alone with a cold L2 and summed with its bound (bytes counted from
      the launch's coverage) (and the largest launch of each window class also back to
      back); polygon_coverage's largest launch of the mode-9 step, and all
-     its launches of that step timed and summed the same way; the
+     its launches of that step held against the plain version bit for
+     bit, timed and summed the same way; the
      standalone affine_resample on a 192x256 window of a 512x384 texture's
      slab: CUDA events, the plain versions once, the bound; then one JSON
      line {"kernels": [...]} with six rows, and last the line {"ok": true,
@@ -602,6 +608,47 @@ def run_main_path(cfg, atlas, card, n_steps=5, prof_steps=3):
     return first, res
 
 
+def phase_scene_timing(label, args, opts, card):
+    """Phases 4, 8 and 11: the scene kernel on step 0's B=64 tables. The
+    main path's launch by CUDA events, and the background pass alone
+    (``bg_only``) beside it: the difference is the object loop. Then the
+    launch with inverse flow and id images against the plain version, bit
+    for bit (frames, all four flow planes, ids; the sign of a zero aside),
+    and the main path's launch against it (its frames and forward flow).
+    Returns the kernel's numbers with the plain version's time (of the
+    launch with inverse flow and ids) and the bound of the main path's."""
+    from flowgen_torch.ops import scene as ps
+
+    k_ms = event_ms(lambda: ps.scene_render(*args, **opts))
+    bg_ms = event_ms(lambda: ps.scene_render(*args, **{**opts, "bg_only": True}))
+    kf, kl, _ = ps.scene_render(*args, **opts)
+    full = {**opts, "inverse_flow": True, "emit_masks": True}
+    k_full = ps.scene_render(*args, **full)
+    p_ms, p_full = host_ms(lambda: ps.scene_render_plain(*args, **full))
+    bits = (int((k_full[0] != p_full[0]).sum())
+            + bits_differ(k_full[1], p_full[1])
+            + int((k_full[2] != p_full[2]).sum())
+            + int((kf != k_full[0]).sum())
+            + bits_differ(kl, k_full[1][:, :kl.shape[1]]))
+    err = max(float((k_full[1] - p_full[1]).abs().max()),
+              float((unpack(k_full[0]) - unpack(p_full[0])).abs().max()))
+    bd = bound(args, opts)
+    print(f"{label} scene kernel (B=64): {k_ms:.4f} ms per launch (CUDA "
+          f"events, 10 launches), of which the background pass (bg_only) "
+          f"{bg_ms:.4f} ms and the object loop {k_ms - bg_ms:.4f} ms; plain "
+          f"version {p_ms:.1f} ms (with inverse flow and ids); bound "
+          f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} ({bd['bytes']:.4e} "
+          f"bytes, {bd['operations']:.4e} float ops) [{card}]")
+    print(f"{label} kernel vs plain (B=64, inverse flow and ids): max |d| "
+          f"{err}, {bits} values with other bits (frames, 4 flow planes, "
+          f"ids, and the main path's launch against it)")
+    if bits or err != 0.0:
+        fail(f"{label} scene kernel differs from its plain version at B=64")
+    return {"ms": k_ms, "bg_only_ms": bg_ms, "plain_ms": p_ms,
+            "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
+            "max_abs_err": err}
+
+
 def phase_mode7(card, dev):
     import flowgen_torch
     from flowgen_torch.ops import scene as ps
@@ -644,23 +691,10 @@ def phase_mode7(card, dev):
 
     # ---- 4: scene kernel timing at B=64 ----
     args, opts = scene_tables(cfg, 0, 0, slabs, dev)
-    k_ms = event_ms(lambda: ps.scene_render(*args, **opts))
-    k_out = ps.scene_render(*args, **opts)
-    p_ms, p_out = host_ms(lambda: ps.scene_render_plain(*args, **opts))
-    g = gates(as_batch(k_out), as_batch(p_out))
-    bd = bound(args, opts)
-    print(f"mode 7 scene kernel (B=64): {k_ms:.3f} ms per launch (CUDA events, "
-          f"10 launches); plain version {p_ms:.1f} ms; bound "
-          f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} "
-          f"({bd['bytes']:.4e} bytes, {bd['operations']:.4e} float ops) "
-          f"[{card}]")
-    print("mode 7 kernel vs plain (scene, B=64): " + json.dumps(g, sort_keys=True))
-    if not g["ok"]:
-        fail("mode 7 kernel vs plain gates failed at B=64")
-    return {"launches": res["launches"]["scene_render"], "ms": k_ms,
-            "plain_ms": p_ms, "bound_ms": bd["bound_ms"],
-            "bound_by": bd["bound_by"],
-            "max_abs_err": max(cmp["max_abs_err"], g["max_abs_err"])}
+    t = phase_scene_timing("mode 7", args, opts, card)
+    return {"launches": res["launches"]["scene_render"], **t,
+            "max_abs_err": max(cmp["max_abs_err"], g["max_abs_err"],
+                               t["max_abs_err"])}
 
 
 def one_doubling(f):
@@ -948,7 +982,6 @@ def phase_quadrant(card, dev):
 def phase_mode13(card, dev):
     """Phases 9-11. Returns the scene kernel's mode-13 numbers."""
     import flowgen_torch
-    from flowgen_torch.ops import scene as ps
 
     plain4, worst, slabs = phase_quadrant(card, dev)
     cfg = flowgen_torch.DataGenConfig(mode=13, batch_size=64, seed=0,
@@ -973,24 +1006,9 @@ def phase_mode13(card, dev):
 
     # ---- 11: scene kernel timing at B=64 ----
     args, opts = scene_tables(cfg, 0, 0, slabs, dev)
-    k_ms = event_ms(lambda: ps.scene_render(*args, **opts))
-    k_out = ps.scene_render(*args, **opts)
-    p_ms, p_out = host_ms(lambda: ps.scene_render_plain(*args, **opts))
-    g64 = gates(as_batch(k_out), as_batch(p_out))
-    bd = bound(args, opts)
-    print(f"mode 13 scene kernel (B=64, inverse flow and ids): {k_ms:.3f} ms "
-          f"per launch (CUDA events, 10 launches); plain version {p_ms:.1f} "
-          f"ms; bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
-          f"({bd['bytes']:.4e} bytes, {bd['operations']:.4e} float ops) "
-          f"[{card}]")
-    print("mode 13 kernel vs plain (scene, B=64): "
-          + json.dumps(g64, sort_keys=True))
-    if not g64["ok"]:
-        fail("mode 13 kernel vs plain gates failed at B=64")
-    return {"launches": res["launches"]["scene_render"], "ms": k_ms,
-            "plain_ms": p_ms, "bound_ms": bd["bound_ms"],
-            "bound_by": bd["bound_by"],
-            "max_abs_err": max(worst, g["max_abs_err"], g64["max_abs_err"])}
+    t = phase_scene_timing("mode 13", args, opts, card)
+    return {"launches": res["launches"]["scene_render"], **t,
+            "max_abs_err": max(worst, g["max_abs_err"], t["max_abs_err"])}
 
 
 # ---------------------------------------------------------------------------
@@ -1525,15 +1543,26 @@ def phase_window_timing(atlas_q, bank9, card, dev):
     pc = time_polygon_coverage(pc_calls, card)
     from flowgen_torch.ops import window
 
-    step = {"launches": len(pc_calls), "ms": 0.0, "bound_ms": 0.0}
+    step = {"launches": len(pc_calls), "ms": 0.0, "bound_ms": 0.0,
+            "max_abs_err": 0.0, "bits_differ": 0}
     for args, _ in pc_calls:
+        ka, ki = window.polygon_coverage(*args)
+        pa, pi = window.polygon_coverage_plain(*args)
+        step["max_abs_err"] = max(step["max_abs_err"],
+                                  float((ka - pa).abs().max()))
+        step["bits_differ"] += bits_differ(ka, pa) + int((ki != pi).sum())
         step["ms"] += event_ms(functools.partial(window.polygon_coverage,
                                                  *args), reps=3, cold=True)
         step["bound_ms"] += bound_of(*polygon_coverage_work(*args))["bound_ms"]
     print(f"polygon_coverage over step 0 of windowed mode 9: "
-          f"{step['launches']} launches, {step['ms']:.4f} ms summed (CUDA "
-          f"events, each launch alone with a cold L2, mean of 3), bound "
+          f"{step['launches']} launches, each against its plain version (max "
+          f"|d| {step['max_abs_err']}, {step['bits_differ']} values with "
+          f"other bits, the sign of a zero aside); {step['ms']:.4f} ms summed "
+          f"(CUDA events, each launch alone with a cold L2, mean of 3), bound "
           f"{step['bound_ms']:.4f} ms summed [{card}]")
+    if step["max_abs_err"] != 0.0 or step["bits_differ"]:
+        fail("polygon_coverage differs from its plain version in a mode-9 "
+             "step")
     pc["step_mode9"] = step
     return {"mode7": ow7, "mode9": ow9, "largest": largest7}, pc
 
@@ -1630,7 +1659,8 @@ def phase_windowed(card, dev):
             "source": "flowgen_torch/csrc/window.cu",
             "replaces": "flowgen/ops/pallas_raster.py:391",
             "launches": r9["launches"]["polygon_coverage"],
-            "max_abs_err": max(worst, pc["max_abs_err"]),
+            "max_abs_err": max(worst, pc["max_abs_err"],
+                               pc["step_mode9"]["max_abs_err"]),
             "ms": pc["ms"], "plain_ms": pc["plain_ms"],
             "bound_ms": pc["bound_ms"], "bound_by": pc["bound_by"],
             "library_ms": None, "library": no_lib,
@@ -1659,7 +1689,6 @@ def main():
     import flowgen_torch
     from flowgen_torch.compose import fused
     from flowgen_torch.ops import _build
-    from flowgen_torch.ops import scene as ps
     from flowgen_torch.warpfields import generator as wg
 
     dev = torch.device("cuda")
@@ -1721,28 +1750,15 @@ def main():
     idx = torch.arange(cfg.batch_size)
     scenes = sample(cfg, cfg.seed, idx, dev, wg.bank_size(cfg))
     args, opts = fused.scene_tables(scenes, cfg, *slabs, bank["aux"])
-    k_ms = event_ms(lambda: ps.scene_render(*args, **opts))
-    k_out = ps.scene_render(*args, **opts)
-    p_ms, p_out = host_ms(lambda: ps.scene_render_plain(*args, **opts))
-    g64 = gates(as_batch(k_out), as_batch(p_out))
-    bd = bound(args, opts)
-    print(f"mode 9 scene kernel (B=64): {k_ms:.3f} ms per launch (CUDA events, "
-          f"10 launches); plain version {p_ms:.1f} ms; bound "
-          f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} "
-          f"({bd['bytes']:.4e} bytes, {bd['operations']:.4e} float ops) "
-          f"[{card}]")
-    print("mode 9 kernel vs plain (scene, B=64): " + json.dumps(g64, sort_keys=True))
-    if not g64["ok"]:
-        fail("mode 9 kernel vs plain gates failed at B=64")
-    m9 = {"launches": counts["scene_render"], "ms": k_ms, "plain_ms": p_ms,
-          "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
-          "max_abs_err": max(worst9, g["max_abs_err"], g64["max_abs_err"])}
+    t = phase_scene_timing("mode 9", args, opts, card)
+    m9 = {"launches": counts["scene_render"], **t,
+          "max_abs_err": max(worst9, g["max_abs_err"], t["max_abs_err"])}
     bt = phase_bank_timing((("768", bank["f768"]), ("1536", bank["f1536"])), card)
     h768, h1536 = bt["768"]["hwarp"], bt["1536"]["hwarp"]
     h_epoch = epoch_hwarp(cfg, dev, card)
     c768, c1536 = bt["768"]["coarse"], bt["1536"]["coarse"]
     bank_err = bank["max_abs_err"]
-    del bank, slabs, args, k_out, p_out
+    del bank, slabs, args
 
     stamp("phases 5-8 (mode 9) done")
     # ---- 9-11: modes 13 and 11, the mode-13 main path ----

@@ -27,7 +27,8 @@
 // intermediate; those sources (coverage, affine-resampled texture, plain
 // background) are recomputed per tap rather than staged with a halo.
 //
-// Included by scene.cu after its layout constants and unit_coverage.
+// Included by scene.cu after its layout constants, StagedEdges and
+// unit_coverage.
 #pragma once
 
 #include "coverage.cuh"
@@ -187,33 +188,60 @@ __device__ __forceinline__ void expanded_texel(
   for (int ch = 0; ch < 3; ++ch) out[ch] = rintf(out[ch]);
 }
 
+// The taps of a deforming object's frame-1 pixel (x, y) whose unit's window
+// is at (y0w, x0w): the expanded window's origin (ey0, ex0), the row lerp
+// tv on it and, for each of tv's two rows, the column lerp tu[k], through
+// the slot's gdisp / vdisp planes. Coverage and texture are evaluated at
+// rows tv.i0, tv.i1 and columns tu[k].i0, tu[k].i1 of the expanded window.
+struct WarpTaps {
+  int ey0, ex0;
+  Tap tv;
+  Tap tu[2];
+};
+
+__device__ __forceinline__ WarpTaps warp_taps(const WarpFrame& g,
+                                              const float* __restrict__ gdp,
+                                              const float* __restrict__ vdp,
+                                              int x, int y, int y0w, int x0w) {
+  WarpTaps w;
+  w.ey0 = min(max(y0w - kWarpEY, 0), g.H - g.whE) & ~7;
+  w.ex0 = min(max(x0w - kWarpEX, 0), g.W - g.wwE);
+  w.tv = warp_tap(((float)y + __ldg(vdp + (size_t)y * g.W + x)) -
+                      (float)w.ey0, g.whE);
+  const int rows[2] = {w.tv.i0, w.tv.i1};
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const float gd = __ldg(gdp + (size_t)(w.ey0 + rows[k]) * g.W + x);
+    w.tu[k] = warp_tap(((float)x + gd) - (float)w.ex0, g.wwE);
+  }
+  return w;
+}
+
 // Frame 1 of a deforming object at output pixel (x, y) of its unit's window
-// (y0w, x0w): coverage and texture on the expanded window, displaced through
-// the slot's gdisp / vdisp planes. Returns the blend mask, the warped binary
-// mask (disp(binary) >= 1 - 0.5/255, for the inverse flow and the ids) and
-// the texture.
+// (y0w, x0w): coverage and texture on the expanded window at the pixel's
+// taps (warp_taps), coverage from the unit's edges as staged for them.
+// Returns the blend mask, the warped binary mask (disp(binary) >= 1 -
+// 0.5/255, for the inverse flow and the ids) and the texture.
 __device__ __noinline__ void warp_unit_pixel(
     const WarpFrame& g, const int* om, const float* of,
-    const float (*sedges)[kEdgePool], const float* __restrict__ gdp,
+    const StagedEdges& st, const float* __restrict__ gdp,
     const float* __restrict__ vdp, const int* __restrict__ slab, int SHs,
     int SWs, int P, int CWO, int use_aa, int x, int y, int y0w, int x0w,
     float* m_out, float* in_out, float tex[3]) {
-  const int ey0 = min(max(y0w - kWarpEY, 0), g.H - g.whE) & ~7;
-  const int ex0 = min(max(x0w - kWarpEX, 0), g.W - g.wwE);
-  const Tap tv = warp_tap(((float)y + __ldg(vdp + (size_t)y * g.W + x)) -
-                              (float)ey0, g.whE);
+  const WarpTaps tp = warp_taps(g, gdp, vdp, x, y, y0w, x0w);
+  const int ey0 = tp.ey0, ex0 = tp.ex0;
+  const Tap tv = tp.tv;
   float aa_r[2], in_r[2], rgb_r[2][3];
   const int rows[2] = {tv.i0, tv.i1};
 #pragma unroll 1
   for (int k = 0; k < 2; ++k) {
     const int wi = rows[k];
-    const float gd = __ldg(gdp + (size_t)(ey0 + wi) * g.W + x);
-    const Tap tu = warp_tap(((float)x + gd) - (float)ex0, g.wwE);
+    const Tap tu = tp.tu[k];
     float aa[2], in[2], rgb[2][3];
     const int cols[2] = {tu.i0, tu.i1};
 #pragma unroll 1
     for (int j = 0; j < 2; ++j) {
-      unit_coverage(om, of, sedges, ex0 + cols[j], ey0 + wi, ey0, ex0, g.whE,
+      unit_coverage(om, of, st, ex0 + cols[j], ey0 + wi, ey0, ex0, g.whE,
                     &aa[j], &in[j]);
       expanded_texel(g, slab, SHs, SWs, P, CWO, of + kOmfMotion, ey0, ex0, wi,
                      cols[j], rgb[j]);

@@ -23,20 +23,22 @@
 // (polygon_coverage). Evaluated densely that is operations; but most
 // windows are full frames around objects that cover a small part of them,
 // and most (edge, pixel) terms are exactly +-0: every row outside the
-// edge's y-span, every cell right of the edge. object_window therefore
-// works on 8 x 128 tiles and evaluates only the terms that can be non-zero
-// (the culls below), shares each edge's row terms across a row's pixels,
-// stages only the surviving edges with their pixel-independent constants
-// (not the whole padded table), and leaves the planes of a pixel group
-// untouched when nothing reached it; what remains is the surviving terms'
-// arithmetic, the I/O of the pixels the object reaches, and a prologue per
-// tile (the tables' staging and two barriers per polygon primitive) that
-// every tile of the largest window pays, reached or not.
-// polygon_coverage is still the dense loop, one sample point per thread.
+// edge's y-span, every cell right of the edge. Both kernels therefore
+// evaluate only the terms that can be non-zero (coverage.cuh's culls) and
+// stage only the surviving edges with their pixel-independent constants,
+// not the whole padded table. object_window works on 8 x 128 tiles, shares
+// each edge's row terms across a row's pixels, and leaves the planes of a
+// pixel group untouched when nothing reached it; what remains is the
+// surviving terms' arithmetic, the I/O of the pixels the object reaches,
+// and a prologue per tile (the tables' staging and two barriers per polygon
+// primitive) that every tile of the largest window pays, reached or not.
+// polygon_coverage works on 8 x 32 tiles of its grid, closes the outline
+// itself (its wrapper launches nothing but the output allocations), and
+// writes every point: its bytes are the grid's and the outputs'.
 //
 // Both sum a polygon's edges 0..n_edges-1 in order, as the dense
 // _area_accumulate does, one pixel's sum on one thread (skipped terms are
-// +-0); coverage.cuh:edge_contrib is that loop body for a cell whose
+// +-0); coverage.cuh:edge_term is that loop body for a cell whose
 // lower-left corner is (xlo, ylo) = (centre - 0.5), and object_window splits
 // it into its row and column parts with the same expressions. The file is
 // compiled with -fmad=false and keeps the JAX order of operations.
@@ -101,25 +103,8 @@ __device__ __forceinline__ void sample_quad(const uint8_t* __restrict__ atlas,
   }
 }
 
-// Culls. Each is exact: it skips only terms that are +-0 (or an ellipse
-// coverage that is 0) for the cells it skips, and a pixel's area, a sum
-// from +0 in edge order, is never -0, so adding +-0 leaves it unchanged.
-//  * Edge rows: with ylo >= max(ay, by) + kEdgeMargin or ylo + 1 <= min(ay,
-//    by) - kEdgeMargin both r0 and r1 lie beyond the same end of [0, 1]
-//    (or inv_dy is 0), so ta == tb and every piece of the integral is 0
-//    (pallas_raster.py:_area_accumulate_blocked culls the same rows).
-//  * Edge columns: with xlo >= max(ax, bx) + kEdgeMargin the cell lies right
-//    of the edge: p == q at ta or tb and the remaining piece's weight, ga
-//    or gb = clip(x(t) - xlo, 0, 1), is 0.
-//  * Ellipses: a cell ell_cull_m px beyond the ellipse's extent lies outside
-//    its sector chord's half-plane while the 100-gon's sagitta is under a
-//    pixel (ops/scene.py:ELL_CULL_M, ELL_R_MAX), in rows as the TPU kernel
-//    culls and, by the same argument, in columns, for ellipses no more than
-//    ell_aniso times longer than wide (a needle's chords reach further:
-//    tests/test_torch_cull.py). Both come from the launch (ops/window.py
-//    owns the policy). The extent is recovered from the stored inverse
-//    transform, so kEllSlack more is kept, and only well-conditioned
-//    ellipses under kEllRCull px are culled.
+// The culls (coverage.cuh: edges by rows and columns, ellipses by their
+// extent) skip only terms that are +-0 or an ellipse coverage that is 0.
 // A pixel group none of whose terms survived has m = +0, and the kernel
 // neither reads nor writes it. That equals the dense blend for whole-valued
 // frames (rintf(f * 1 + t * 0) = f; the renderer's frames hold whole
@@ -127,77 +112,6 @@ __device__ __forceinline__ void sample_quad(const uint8_t* __restrict__ atlas,
 // dense form may write +0 (-0 + +0), the kernel leaves -0.
 constexpr int kOwGroups = 4;                        // 32-pixel groups a row
 constexpr int kOwCols = 32 * kOwGroups;             // tile width
-constexpr float kEdgeMargin = 2.0f;
-constexpr float kEllSlack = 1.0f;
-constexpr float kEllRCull = 2000.0f;   // under ELL_R_MAX = 2026.6
-constexpr float kEllCondCull = 64.0f;  // |L|_F |L^-1|_F of a culled ellipse
-constexpr int kEll = 16;               // floats of an ellipse record
-
-// Pixel-independent terms of edge (a -> b) as coverage.cuh:edge_contrib
-// computes them, and its cuts: rec[0] = (ax, ay, dx, dy), rec[1] = (inv_dx,
-// inv_dy, 0.5 dx, xcut), rec[2] = (ycut_lo, ycut_hi, -, -). An edge with a
-// NaN endpoint is never cut.
-__device__ __forceinline__ void edge_record(float ax, float ay, float bx,
-                                            float by, float4 rec[3]) {
-  const float dx = bx - ax;
-  const float dy = by - ay;
-  const float eps = 0x1.197998p-40f;  // float32(1e-12)
-  const float inv_dy = fabsf(dy) > eps ? 1.0f / dy : 0.0f;
-  const float inv_dx = fabsf(dx) > eps ? 1.0f / dx : 0.0f;
-  float xcut = fmaxf(ax, bx) + kEdgeMargin;
-  float ylc = fminf(ay, by) - kEdgeMargin;
-  float yhc = fmaxf(ay, by) + kEdgeMargin;
-  if (isnan(ax) || isnan(ay) || isnan(bx) || isnan(by)) {
-    xcut = yhc = INFINITY;
-    ylc = -INFINITY;
-  }
-  rec[0] = make_float4(ax, ay, dx, dy);
-  rec[1] = make_float4(inv_dx, inv_dy, 0.5f * dx, xcut);
-  rec[2] = make_float4(ylc, yhc, 0.0f, 0.0f);
-}
-
-// An ellipse primitive's record from its fmeta row f (inverse 2x3, rx, ry):
-// f, the Jacobian over the radii, and its cull box [xlo, xhi] x [ylo, yhi]
-// in cell lower-left coordinates (infinite when it is not culled): cells
-// ell_cull_m (+ kEllSlack) px beyond its extent, for axis ratios up to
-// ell_aniso.
-__device__ __forceinline__ void ellipse_record(const float* f, float* e,
-                                               float ell_cull_m,
-                                               float ell_aniso) {
-  const float i00 = f[0], i01 = f[1], i02 = f[2];
-  const float i10 = f[3], i11 = f[4], i12 = f[5];
-  const float rx_e = f[6], ry_e = f[7];
-  for (int k = 0; k < 8; ++k) e[k] = f[k];
-  e[8] = i00 / rx_e;
-  e[9] = i01 / rx_e;
-  e[10] = i10 / ry_e;
-  e[11] = i11 / ry_e;
-  // The forward transform L = I^-1, centre -L i, half extents.
-  const float det = i00 * i11 - i01 * i10;
-  const float l00 = i11 / det, l01 = -i01 / det;
-  const float l10 = -i10 / det, l11 = i00 / det;
-  const float ecx = -(l00 * i02 + l01 * i12);
-  const float ecy = -(l10 * i02 + l11 * i12);
-  const float a = l00 * rx_e, b = l01 * ry_e, c = l10 * rx_e, d = l11 * ry_e;
-  const float hx = sqrtf(a * a + b * b);
-  const float hy = sqrtf(c * c + d * d);
-  const float r = sqrtf(a * a + b * b + c * c + d * d);
-  const float cond = sqrtf(i00 * i00 + i01 * i01 + i10 * i10 + i11 * i11) *
-                     sqrtf(l00 * l00 + l01 * l01 + l10 * l10 + l11 * l11);
-  // Axis ratio a of the screen ellipse: |J|_F^2 / |det J| = a + 1 / a.
-  const float jf = e[8] * e[8] + e[9] * e[9] + e[10] * e[10] + e[11] * e[11];
-  const float jdet = fabsf(e[8] * e[11] - e[9] * e[10]);
-  const bool round_enough =
-      jf <= (ell_aniso + 1.0f / ell_aniso) * jdet;
-  const float m = ell_cull_m + kEllSlack;
-  const bool cull = round_enough && r < kEllRCull && cond < kEllCondCull &&
-                    isfinite(ecx) &&
-                    isfinite(ecy) && isfinite(hx) && isfinite(hy);
-  e[12] = cull ? (ecx - hx) - m : -INFINITY;   // cells with xlo + 1 <= e[12]
-  e[13] = cull ? (ecx + hx) + m : INFINITY;    // cells with xlo >= e[13]
-  e[14] = cull ? (ecy - hy) - m : -INFINITY;
-  e[15] = cull ? (ecy + hy) + m : INFINITY;
-}
 
 // One object's window pass per window: coverage over its primitives with the
 // composite screen algebra, round(f (1 - m) + t m), and the flow overwrite
@@ -287,7 +201,8 @@ __global__ void __launch_bounds__(kTileW* kTileH, 4)
       if (tid < ne) {
         const float* eb = edges + (size_t)w * 4 * ce + c * kMaxEdges + tid;
         edge_record(eb[0], eb[ce], eb[2 * ce], eb[3 * ce], rec);
-        keep = !(t_ylo >= rec[2].y || t_yhi <= rec[2].x || t_xlo >= rec[1].w);
+        keep = edge_rows_live(rec[2], t_ylo, t_yhi) &&
+               edge_cols_live(rec[1], t_xlo);
       }
       const unsigned bal = __ballot_sync(0xffffffffu, keep);
       if (warp < 4 && lane == 0) s_cnt[warp] = __popc(bal);
@@ -306,7 +221,7 @@ __global__ void __launch_bounds__(kTileW* kTileH, 4)
       for (int k = 0; k < kOwGroups; ++k) area[k] = 0.0f;
       for (int e = 0; e < n_kept && row_in; ++e) {
         const float4 cut = s_rec[e][2];
-        if (ylo >= cut.y || ylo1 <= cut.x) continue;
+        if (!edge_rows_live(cut, ylo, ylo1)) continue;
         const float4 r0v = s_rec[e][0];
         const float4 r1v = s_rec[e][1];
         const float ax = r0v.x, ay = r0v.y, dx = r0v.z, dy = r0v.w;
@@ -319,7 +234,7 @@ __global__ void __launch_bounds__(kTileW* kTileH, 4)
         const float xtb = ax + tb * dx;
 #pragma unroll
         for (int k = 0; k < kOwGroups; ++k) {
-          if (gx[k] >= r1v.w) continue;
+          if (!edge_cols_live(r1v, gx[k])) continue;
           live |= 1u << k;
           const float xl = xlo[k];
           const float s0 = (xl - ax) * inv_dx;
@@ -344,11 +259,11 @@ __global__ void __launch_bounds__(kTileW* kTileH, 4)
       }
     } else {
       const float* e = s_ell[c];
-      const bool rows_live = row_in && !(ylo >= e[15] || ylo1 <= e[14]);
+      const bool rows_live = row_in && ell_rows_live(e, ylo, ylo1);
 #pragma unroll
       for (int k = 0; k < kOwGroups; ++k) {
         float aa = 0.0f;
-        if (rows_live && !(gx[k] >= e[13] || gx[k] + 32.0f <= e[12])) {
+        if (rows_live && ell_cols_live(e, gx[k], gx[k] + 32.0f)) {
           live |= 1u << k;
           const float cx = xlo[k] + 0.5f;
           const float cy = ylo + 0.5f;
@@ -403,30 +318,92 @@ __global__ void __launch_bounds__(kTileW* kTileH, 4)
 }
 
 // Exact-area coverage of one closed outline per window over its sample
-// grid: edges (N, 4, E) with the closing edge already forced, n_edges (N),
-// px / py (N, npix). Block 256; grid (npix / 256, N).
-__global__ void __launch_bounds__(256)
-    polygon_coverage_kernel(const float* __restrict__ edges,
+// grid: points (N, E, 2) of which the first n_edges (N) are real, closed in
+// the kernel (edge e runs from point e to point e + 1, edge n_edges - 1
+// back to point 0, as polygon_coverage_pallas builds its table), px / py
+// (N, h, w). Block (32, 8), one point a thread; grid (8 x 32 tiles, N).
+// A CTA reduces its points' cell corners to a box (any grid: nothing
+// assumes one x per column or one y per row), stages in edge order the
+// edges that can reach a cell of the box (coverage.cuh's row and column
+// culls) with their constants, and each point sums the staged edges that
+// its own cell does not cull. A point no edge reached gets +0 and 0, as
+// the dense sum gives. A point with a NaN coordinate opens the box, so its
+// tile culls nothing.
+__global__ void __launch_bounds__(kTileW* kTileH)
+    polygon_coverage_kernel(const float* __restrict__ pts,
                             const int* __restrict__ n_edges,
                             const float* __restrict__ px,
                             const float* __restrict__ py,
                             float* __restrict__ aa, uint8_t* __restrict__ inside,
-                            int E, int npix) {
-  __shared__ float s_edges[4 * kMaxEdges];
-  const int w = blockIdx.y;
-  for (int i = threadIdx.x; i < 4 * E; i += blockDim.x)
-    s_edges[i] = edges[(size_t)w * 4 * E + i];
+                            int E, int h, int w, int tiles_x) {
+  __shared__ float4 s_rec[kMaxEdges][3];
+  __shared__ float s_box[kTileH][3];
+  __shared__ int s_cnt[4];
+  const int win = blockIdx.y;
+  const int warp = threadIdx.y;
+  const int lane = threadIdx.x;
+  const int tid = warp * kTileW + lane;
+  const int i = (blockIdx.x / tiles_x) * kTileH + warp;
+  const int j = (blockIdx.x % tiles_x) * kTileW + lane;
+  const bool live = i < h && j < w;
+  const size_t at = ((size_t)win * h + i) * w + j;
+  float xlo = 0.0f, ylo = 0.0f;
+  float bx0 = INFINITY, by0 = INFINITY, by1 = -INFINITY;
+  if (live) {
+    xlo = px[at] - 0.5f;
+    ylo = py[at] - 0.5f;
+    const bool open = isnan(xlo) || isnan(ylo);
+    bx0 = open ? -INFINITY : xlo;
+    by0 = open ? -INFINITY : ylo;
+    by1 = open ? INFINITY : ylo;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    bx0 = fminf(bx0, __shfl_xor_sync(0xffffffffu, bx0, o));
+    by0 = fminf(by0, __shfl_xor_sync(0xffffffffu, by0, o));
+    by1 = fmaxf(by1, __shfl_xor_sync(0xffffffffu, by1, o));
+  }
+  if (lane == 0) {
+    s_box[warp][0] = bx0;
+    s_box[warp][1] = by0;
+    s_box[warp][2] = by1;
+  }
+  const int ne = max(min(n_edges[win], E), 0);
+  float4 rec[3];
+  if (tid < ne) {
+    const float* a = pts + ((size_t)win * E + tid) * 2;
+    const float* b = pts + ((size_t)win * E + (tid + 1 < ne ? tid + 1 : 0)) * 2;
+    edge_record(a[0], a[1], b[0], b[1], rec);
+  }
   __syncthreads();
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= npix) return;
-  const size_t at = (size_t)w * npix + p;
-  const float xlo = px[at] - 0.5f;
-  const float ylo = py[at] - 0.5f;
-  const int ne = min(n_edges[w], E);
+#pragma unroll
+  for (int v = 0; v < kTileH; ++v) {
+    bx0 = fminf(bx0, s_box[v][0]);
+    by0 = fminf(by0, s_box[v][1]);
+    by1 = fmaxf(by1, s_box[v][2]);
+  }
+  const bool keep = tid < ne && edge_rows_live(rec[2], by0, by1 + 1.0f) &&
+                    edge_cols_live(rec[1], bx0);
+  const unsigned bal = __ballot_sync(0xffffffffu, keep);
+  if (warp < 4 && lane == 0) s_cnt[warp] = __popc(bal);
+  __syncthreads();
+  const int n_kept = s_cnt[0] + s_cnt[1] + s_cnt[2] + s_cnt[3];
+  if (keep) {
+    int k = __popc(bal & ((1u << lane) - 1u));
+    for (int v = 0; v < warp; ++v) k += s_cnt[v];
+    s_rec[k][0] = rec[0];
+    s_rec[k][1] = rec[1];
+    s_rec[k][2] = rec[2];
+  }
+  __syncthreads();
+  if (!live) return;
+  const float ylo1 = ylo + 1.0f;
   float area = 0.0f;
-  for (int e = 0; e < ne; ++e) {
-    area = area + edge_contrib(s_edges[e], s_edges[E + e], s_edges[2 * E + e],
-                               s_edges[3 * E + e], xlo, ylo);
+  for (int e = 0; e < n_kept; ++e) {
+    const float4 r1v = s_rec[e][1];
+    if (!edge_rows_live(s_rec[e][2], ylo, ylo1) || !edge_cols_live(r1v, xlo))
+      continue;
+    area = area + edge_term(s_rec[e][0], r1v, xlo, ylo);
   }
   area = fabsf(area);
   aa[at] = fminf(area, 1.0f);
@@ -460,14 +437,18 @@ extern "C" int flowgen_object_window(const float* edges, const int* meta,
   return (int)cudaGetLastError();
 }
 
-extern "C" int flowgen_polygon_coverage(const float* edges, const int* n_edges,
+extern "C" int flowgen_polygon_coverage(const float* pts, const int* n_edges,
                                         const float* px, const float* py,
                                         float* aa, uint8_t* inside, int N,
-                                        int E, int npix, void* stream) {
-  if (E > flowgen::kMaxEdges || N <= 0 || npix <= 0)
+                                        int E, int h, int w, void* stream) {
+  using namespace flowgen;
+  if (E > kMaxEdges || N <= 0 || h <= 0 || w <= 0)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((npix + 255) / 256, N);
-  flowgen::polygon_coverage_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
-      edges, n_edges, px, py, aa, inside, E, npix);
+  const int tiles_x = (w + kTileW - 1) / kTileW;
+  const int tiles_y = (h + kTileH - 1) / kTileH;
+  const dim3 block(kTileW, kTileH);
+  const dim3 grid(tiles_x * tiles_y, N);
+  polygon_coverage_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+      pts, n_edges, px, py, aa, inside, E, h, w, tiles_x);
   return (int)cudaGetLastError();
 }

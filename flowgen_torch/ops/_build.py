@@ -147,7 +147,7 @@ def load_window_library():
             ctypes.c_int] * 16 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
         lib.flowgen_object_window.restype = ctypes.c_int
         lib.flowgen_polygon_coverage.argtypes = [ctypes.c_void_p] * 6 + [
-            ctypes.c_int] * 3 + [ctypes.c_void_p]
+            ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.flowgen_polygon_coverage.restype = ctypes.c_int
     return lib
 

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import math
 
 import torch
 
@@ -42,13 +43,13 @@ from .texture import sample_bilinear_quad_flat
 
 WIN_B, WIN_H, WIN_W, WIN_TEX = range(4)
 
-# The culls of csrc/window.cu:object_window_kernel (the plain versions stay
-# dense; tests/test_torch_cull.py pins the facts they rest on): an edge's
-# term is skipped for cell rows 2 px beyond its y-span and for cells 2 px
-# right of it; an ellipse no more than ELL_CULL_ANISO times longer than
-# wide is skipped for cells ELL_CULL_M (ops/scene.py) + 1 px beyond its
-# extent, in rows and in columns. The kernel takes ELL_CULL_M and
-# ELL_CULL_ANISO from each launch.
+# The culls of csrc/coverage.cuh, which both window kernels use (the plain
+# versions stay dense; tests/test_torch_cull.py and test_torch_tile_cull.py
+# pin the facts they rest on): an edge's term is skipped for cell rows 2 px
+# beyond its y-span and for cells 2 px right of it; object_window skips an
+# ellipse no more than ELL_CULL_ANISO times longer than wide for cells
+# ELL_CULL_M (ops/scene.py) + 1 px beyond its extent, in rows and in
+# columns. The kernel takes ELL_CULL_M and ELL_CULL_ANISO from each launch.
 ELL_CULL_ANISO = 4.0
 
 _plain = False
@@ -134,7 +135,8 @@ def _area_accumulate(ax, ay, bx, by, n_edges, cx, cy):
 
 def _closed_edges(edge_pts, n_edges):
     """(n, 4, E) edge table of outlines (n, E, 2) whose edge n_edges-1 is
-    forced back to point 0 (``polygon_coverage_pallas``)."""
+    forced back to point 0 (``polygon_coverage_pallas``; the CUDA kernel
+    closes the outline itself)."""
     E = edge_pts.shape[-2]
     b = torch.roll(edge_pts, -1, dims=-2)
     last = torch.arange(E, device=edge_pts.device)[None, :] == (
@@ -171,30 +173,31 @@ def polygon_coverage(edge_pts, n_edges, px, py):
 
 
 def _polygon_coverage_cuda(edge_pts, n_edges, px, py):
-    """Launch ``polygon_coverage_kernel``; raises on anything but CUDA
-    tensors of the expected types."""
+    """Launch ``polygon_coverage_kernel``, which closes the outlines itself:
+    contiguous float32 points (n, E, 2), int32 ``n_edges`` (n,) and float32
+    grids (n, ...) alike, all on one card, or it raises. Launches nothing
+    else but the outputs' allocations; the grids' last axis is the kernel's
+    row."""
     from ._build import load_window_library
 
     n, E = edge_pts.shape[0], edge_pts.shape[1]
-    n_edges = n_edges.to(torch.int32).contiguous()
-    edges = _closed_edges(edge_pts.to(torch.float32), n_edges).contiguous()
-    px, py = px.contiguous(), py.contiguous()
-    for name, t, dt in (("edges", edges, torch.float32),
-                        ("n_edges", n_edges, torch.int32),
-                        ("px", px, torch.float32), ("py", py, torch.float32)):
-        _check(f"polygon_coverage: {name}", t, dt)
-    if px.shape != py.shape or px.shape[0] != n:
+    _check("polygon_coverage: edge_pts", edge_pts, torch.float32, (n, E, 2))
+    _check("polygon_coverage: n_edges", n_edges, torch.int32, (n,))
+    _check("polygon_coverage: px", px, torch.float32)
+    _check("polygon_coverage: py", py, torch.float32, px.shape)
+    if px.shape[0] != n:
         raise ValueError("polygon_coverage: grids must be (n, ...) alike")
-    npix = px[0].numel()
+    w = px.shape[-1] if px.dim() > 1 else 1
+    h = math.prod(px.shape[1:]) // max(w, 1)
     aa = torch.empty_like(px)
-    inside = torch.empty(px.shape, dtype=torch.uint8, device=px.device)
+    inside = torch.empty(px.shape, dtype=torch.bool, device=px.device)
     err = load_window_library().flowgen_polygon_coverage(
-        _ptr(edges), _ptr(n_edges), _ptr(px), _ptr(py), _ptr(aa), _ptr(inside),
-        n, E, npix, _stream(px))
+        _ptr(edge_pts), _ptr(n_edges), _ptr(px), _ptr(py), _ptr(aa),
+        _ptr(inside), n, E, h, w, _stream(px))
     if err != 0:
         raise RuntimeError(f"polygon_coverage kernel launch failed: CUDA error {err}")
     polygon_coverage.launches += 1
-    return aa, inside.bool()
+    return aa, inside
 
 
 polygon_coverage.launches = 0

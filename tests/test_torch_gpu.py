@@ -200,6 +200,24 @@ def test_mode9_inverse_flow_and_ids_match_plain():
     assert torch.equal(ki, pi)
 
 
+def test_mode9_scene_kernel_matches_plain_b8():
+    """A batch of 8 at 512x384 holding a deforming object and a deforming
+    background, with inverse flow and ids: the redesigned kernel (work list
+    binned per CTA, staged edges culled against the taps' box) equals its
+    plain version bit for bit."""
+    _need_card()
+    cfg = flowgen_torch.DataGenConfig(mode=9, batch_size=8,
+                                      compute_inverse_flow=True,
+                                      emit_masks=True)
+    args, opts = _mode9_tables(cfg, torch.device("cuda"))
+    kf, kl, ki = ps.scene_render(*args, **opts)
+    torch.cuda.synchronize()
+    pf, pl, pi = ps.scene_render_plain(*args, **opts)
+    assert torch.equal(kf, pf)
+    assert torch.equal(kl, pl)
+    assert torch.equal(ki, pi)
+
+
 def _windowed_inputs(cfg, seed, dev):
     """Scenes, the quad-packed atlas and (mode 9) the crop bank of a
     windowed batch."""
@@ -265,6 +283,46 @@ def test_polygon_coverage_kernel_matches_plain():
     pa, pi = window.polygon_coverage_plain(pts, n_edges, px, py)
     assert torch.equal(ka.cpu(), pa) and torch.equal(ki.cpu(), pi)
     assert 0 < float(pi.float().mean()) < 1
+
+
+@pytest.mark.parametrize("grid", ["jittered", "shuffled", "1x1", "1x1024"])
+def test_polygon_coverage_kernel_grids(grid):
+    """Any sample grid (the kernel boxes each tile from its points): jittered
+    and shuffled points, a single point and a single row; outlines with
+    n_edges = E (no padding), 3 and 57 edges. Bit for bit against the plain
+    version on the CPU."""
+    from flowgen_torch.ops import window
+
+    _need_card()
+    rng = np.random.default_rng(4)
+    n, E = 4, 120
+    ang = np.sort(rng.uniform(0, 2 * np.pi, (n, E)), axis=1)
+    r = rng.uniform(15.0, 60.0, (n, E))
+    pts = np.stack([100 + 1.5 * r * np.cos(ang), 30 + r * np.sin(ang)], -1)
+    n_edges = np.array([E, E, 3, 57], np.int32)
+    h, w = {"jittered": (64, 200), "shuffled": (48, 160), "1x1": (1, 1),
+            "1x1024": (1, 1024)}[grid]
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+    px = np.broadcast_to(xs + 0.5 + 100.0 * (w == 1), (n, h, w)).copy()
+    py = np.broadcast_to(ys + 0.5 + 30.0 * (h == 1), (n, h, w)).copy()
+    if grid in ("jittered", "shuffled"):
+        px += rng.uniform(-0.45, 0.45, px.shape)
+        py += rng.uniform(-0.45, 0.45, py.shape)
+    if grid == "shuffled":
+        perm = rng.permutation(h * w)
+        px = px.reshape(n, -1)[:, perm].reshape(n, h, w)
+        py = py.reshape(n, -1)[:, perm].reshape(n, h, w)
+    pts, px, py = (torch.from_numpy(np.ascontiguousarray(a, np.float32))
+                   for a in (pts, px, py))
+    ne = torch.from_numpy(n_edges)
+    dev = torch.device("cuda")
+    ka, ki = window.polygon_coverage(pts.to(dev), ne.to(dev), px.to(dev),
+                                     py.to(dev))
+    torch.cuda.synchronize()
+    pa, pi = window.polygon_coverage_plain(pts, ne, px, py)
+    assert torch.equal(ka.cpu().view(torch.int32), pa.view(torch.int32))
+    assert torch.equal(ki.cpu(), pi)
+    assert bool(pi.any())
 
 
 def test_generate_batch_cuda_matches_cpu_windowed():
