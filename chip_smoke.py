@@ -27,23 +27,28 @@ Phases (any failure exits non-zero before the final line):
      path's launch against it;
   5. mode 9, bank kernels vs plain at the main path's shapes: one doubling
      of the 8 half-lattice fields (768^2) and one of the full-size fields
-     (1536^2), each through coarse_gdisp and hwarp_rows against their plain
-     versions, then the whole make_bank_and_aux (the aux solve at 1536 and
-     the background bands included) through the kernels against the same
-     through the plain versions: max difference 0 expected; the bank gate
-     is a NaN-mask mismatch under 1e-4 plus the flow gate;
+     (1536^2), each through coarse_gdisp_batch and hwarp_rows against their
+     plain versions, then the whole make_bank_and_aux (the aux solve at 1536
+     and the background bands included) through the kernels against the
+     same through the plain versions: max difference 0 expected; the bank
+     gate is a NaN-mask mismatch under 1e-4 plus the flow gate;
   6. mode 9, scene kernel vs plain at 512x384, B=4, on samples of the main
      path's step 0 that hold a deforming object and a deforming background;
   7. the mode-9 main path: Generator(DataGenConfig(mode=9, batch_size=64,
      seed=0)), 2 warm-up and 5 timed steps across bank epochs, the same
      checks and numbers as phase 3, with a bank-producer layer;
   8. mode 9, per-kernel timing at the main path's shapes (scene kernel at
-     B=64 as in phase 4, coarse_gdisp's solve and hwarp_rows at 768^2 and 1536^2, and
-     coarse_gdisp_batch as a whole beside the solve): CUDA events, the plain
-     versions once, the bound, and for hwarp_rows the time of
-     torch.nn.functional.grid_sample on the same planes, back to back and
-     with a cold L2; then every hwarp_rows launch of one bank epoch (34),
-     each against its plain version and timed alone with a cold L2, summed;
+     B=64 as in phase 4; coarse_gdisp_batch whole, its two kernels, on 8
+     fields of 768^2, 1536^2 and 3072^2, the last Sintel mode 9's full-size
+     doubling, each against its plain version bit for bit; hwarp_rows at
+     768^2 and 1536^2): CUDA events back to back and with a cold L2, the
+     plain versions once, the bound, and for hwarp_rows the time of
+     torch.nn.functional.grid_sample on the same planes; then every
+     hwarp_rows launch (34) and every coarse_gdisp_batch call (18) of one
+     bank epoch, each against its plain version and timed alone with a
+     cold L2, summed; and torch.profiler's count of CUDA kernels in one
+     coarse_gdisp_batch call (2 expected) and in the epoch, taken in a
+     fresh process of this script (chip_smoke.py --coarse-kernel-counts);
   9. modes 13 and 11 (quadrant slabs, 2x2 texture sub-windows) with inverse
      flow and id images, scene kernel vs plain at 512x384, B=4 (phase 6
      does the same for mode 9's warp branch): frames, all four flow planes
@@ -80,7 +85,8 @@ Phases (any failure exits non-zero before the final line):
      its launches of that step held against the plain version bit for
      bit, timed and summed the same way; the
      standalone affine_resample on a 192x256 window of a 512x384 texture's
-     slab: CUDA events, the plain versions once, the bound; then one JSON
+     slab: CUDA events, the plain versions once, the bound, and beside it an
+     empty kernel's launch timed the same way (the floor); then one JSON
      line {"kernels": [...]} with six rows, and last the line {"ok": true,
      "device": {...}}.
 
@@ -161,7 +167,7 @@ def kernel_counters():
     from flowgen_torch.warpfields import compose
 
     return {"scene_render": ps.scene_render,
-            "coarse_gdisp": compose.coarse_solve,
+            "coarse_gdisp": compose.coarse_gdisp_batch,
             "hwarp_rows": compose.hwarp_rows,
             "object_window": window.object_window,
             "polygon_coverage": window.polygon_coverage,
@@ -277,6 +283,20 @@ def device_busy(gen, steps: int = 3):
                            getattr(ev, "self_cuda_time_total", 0.0))
         n_kernels += ev.count
     return 1e3 * wall, busy_us / 1e3, n_kernels
+
+
+def cuda_kernels(fn) -> int:
+    """CUDA kernels (device activities) torch.profiler counts in one call
+    of ``fn``, ended by a synchronize."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.count for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA)
 
 
 def unpack(frames):
@@ -882,31 +902,59 @@ def epoch_hwarp(cfg, dev, card):
     return res
 
 
+def coarse_bytes(D):
+    """coarse_gdisp_batch's bytes bound: the coarse subsample of both
+    channels read once, the full-size plane written once."""
+    N, Hd, Wd, _ = D.shape
+    return 4.0 * (2 * N * (Hd // 4) * (Wd // 4) + N * Hd * Wd)
+
+
+def bits_unequal(a, b) -> int:
+    """Values of two float32 tensors whose bits differ (NaN and the sign of
+    a zero included)."""
+    return int((a.contiguous().view(torch.int32)
+                != b.contiguous().view(torch.int32)).sum())
+
+
+def coarse_whole(D):
+    """coarse_gdisp_batch on D as a whole (its two kernels): CUDA events
+    back to back and with a cold L2, the plain version once (host clock),
+    the bytes bound, and the difference from the plain version."""
+    from flowgen_torch.warpfields import compose
+
+    whole = lambda: compose.coarse_gdisp_batch(D)
+    res = {"ms": event_ms(whole), "ms_cold": event_ms(whole, reps=3, cold=True)}
+    gd = whole()
+    with compose.plain_versions():
+        res["plain_ms"], cp = host_ms(whole)
+    res.update(bound_ms=1e3 * coarse_bytes(D) / PEAK_BYTES_S,
+               max_abs_err=float((gd - cp).abs().max()),
+               bits_differ=bits_unequal(gd, cp))
+    return res
+
+
 def phase_bank_timing(fields_by_size, card):
-    """Phase 8, bank kernels at 768^2 and 1536^2 (8 fields): the bare
-    coarse solve (the kernel's launch on its prepared planes) and, beside
-    it, coarse_gdisp_batch as a whole (subsample, transpose and pad, solve,
-    two x2 upsamples); hwarp_rows and grid_sample on the same planes."""
+    """Phase 8, bank kernels on 8 fields: coarse_gdisp_batch as a whole
+    (its two kernels) at 768^2, 1536^2 and 3072^2, back to back and with a
+    cold L2, against its plain version bit for bit; hwarp_rows and
+    grid_sample on the same planes at 768^2 and 1536^2."""
     from flowgen_torch.warpfields import compose
 
     rows = {}
     for size, f in fields_by_size:
         M, C, S, _ = f.shape
         D = f.permute(0, 2, 3, 1)
-        dyT, dxT, Lv = compose.coarse_solve_inputs(D)
-        solve = lambda: compose.coarse_solve(dyT, dxT, Lv)
-        c_ms = event_ms(solve)
-        ck = solve()
-        with compose.plain_versions():
-            cp_ms, cp = host_ms(solve)
-        cw_ms = event_ms(lambda: compose.coarse_gdisp_batch(D))
-        with compose.plain_versions():
-            cwp_ms, _ = host_ms(lambda: compose.coarse_gdisp_batch(D))
-        # The solve reads its two planes and writes one, all (N, R, Lp); the
-        # whole function reads the coarse subsample (two channels) and writes
-        # the full-size plane.
-        c_bytes = 3 * dyT.numel() * 4
-        cw_bytes = M * Lv * Lv * C * 4 + M * S * S * 4
+        rc = rows.setdefault(size, {})["coarse"] = coarse_whole(D)
+        print(f"coarse_gdisp_batch on {M} fields of {S}^2: {rc['ms']:.4f} ms "
+              f"back to back, {rc['ms_cold']:.4f} ms with a cold L2 (CUDA "
+              f"events; plain {rc['plain_ms']:.1f} ms; bound "
+              f"{rc['bound_ms']:.4f} ms by bytes); max |d| vs plain "
+              f"{rc['max_abs_err']}, {rc['bits_differ']} values with other "
+              f"bits [{card}]")
+        if rc["max_abs_err"] != 0.0 or rc["bits_differ"]:
+            fail(f"coarse_gdisp_batch differs from its plain version at {S}^2")
+        if S > 1536:
+            continue
         gd = compose.coarse_gdisp_batch(D)
         disp = gd.contiguous()
         planes = f.contiguous()
@@ -917,31 +965,103 @@ def phase_bank_timing(fields_by_size, card):
         hk = call()
         gs = grid_sample_call(planes, disp)
         lib_ms, lib_cold = event_ms(gs), event_ms(gs, cold=True)
-        rows[size] = {
-            "coarse": {"ms": c_ms, "plain_ms": cp_ms,
-                       "bound_ms": 1e3 * c_bytes / PEAK_BYTES_S,
-                       "max_abs_err": float((ck - cp).abs().max()),
-                       "wrapper_ms": cw_ms, "wrapper_plain_ms": cwp_ms,
-                       "wrapper_bound_ms": 1e3 * cw_bytes / PEAK_BYTES_S},
-            "hwarp": {"ms": h_ms, "ms_cold": h_cold, "plain_ms": hp_ms,
-                      "library_ms": lib_ms, "library_ms_cold": lib_cold,
-                      "bound_ms": 1e3 * hwarp_bytes(planes, disp) / PEAK_BYTES_S,
-                      "max_abs_err": float((hk - hp).abs().max()),
-                      "grid_sample_max_diff": float((gs() - hk).abs().max())},
-        }
-        rc, rh = rows[size]["coarse"], rows[size]["hwarp"]
-        print(f"bank kernels at {S}^2 x {M} fields: coarse solve {c_ms:.4f} ms "
-              f"(plain {cp_ms:.1f} ms, bound {rc['bound_ms']:.4f} ms by bytes, "
-              f"max |d| {rc['max_abs_err']}); coarse_gdisp_batch whole "
-              f"{cw_ms:.4f} ms (plain {cwp_ms:.1f} ms, bound "
-              f"{rc['wrapper_bound_ms']:.4f} ms); hwarp_rows on {M * C * S} x "
-              f"{S} rows {h_ms:.4f} ms, {h_cold:.4f} ms with a cold L2 (plain "
-              f"{hp_ms:.1f} ms, grid_sample {lib_ms:.4f} ms, {lib_cold:.4f} ms "
-              f"cold, bound {rh['bound_ms']:.4f} ms by bytes, "
-              f"grid_sample max |d| {rh['grid_sample_max_diff']:.2e}) [{card}]")
-        if rc["max_abs_err"] != 0.0 or rh["max_abs_err"] != 0.0:
-            fail(f"bank kernels differ from their plain versions at {S}^2")
+        rh = rows[size]["hwarp"] = {
+            "ms": h_ms, "ms_cold": h_cold, "plain_ms": hp_ms,
+            "library_ms": lib_ms, "library_ms_cold": lib_cold,
+            "bound_ms": 1e3 * hwarp_bytes(planes, disp) / PEAK_BYTES_S,
+            "max_abs_err": float((hk - hp).abs().max()),
+            "grid_sample_max_diff": float((gs() - hk).abs().max())}
+        print(f"hwarp_rows on {M * C * S} x {S} rows: {h_ms:.4f} ms, "
+              f"{h_cold:.4f} ms with a cold L2 (plain {hp_ms:.1f} ms, "
+              f"grid_sample {lib_ms:.4f} ms, {lib_cold:.4f} ms cold, bound "
+              f"{rh['bound_ms']:.4f} ms by bytes, grid_sample max |d| "
+              f"{rh['grid_sample_max_diff']:.2e}); max |d| vs plain "
+              f"{rh['max_abs_err']} [{card}]")
+        if rh["max_abs_err"] != 0.0:
+            fail(f"hwarp_rows differs from its plain version at {S}^2")
     return rows
+
+
+def epoch_coarse(cfg, dev):
+    """Every coarse_gdisp_batch call of one bank epoch of the mode-9 path
+    (make_bank_and_aux at the configuration's size), each against its plain
+    version bit for bit and timed alone with a cold L2, summed with its
+    bound."""
+    from flowgen_torch.random.streams import root_key
+    from flowgen_torch.warpfields import compose
+    from flowgen_torch.warpfields import generator as wg
+
+    calls, restore = record_launches(compose, "coarse_gdisp_batch")
+    try:
+        wg.make_bank_and_aux(root_key(cfg.seed, dev), 0, cfg)
+    finally:
+        restore()
+    res = {"calls": len(calls), "ms": 0.0, "bound_ms": 0.0,
+           "max_abs_err": 0.0, "bits_differ": 0, "shapes": {}}
+    for (D,), _ in calls:
+        k = compose.coarse_gdisp_batch(D)
+        with compose.plain_versions():
+            p = compose.coarse_gdisp_batch(D)
+        res["max_abs_err"] = max(res["max_abs_err"], float((k - p).abs().max()))
+        res["bits_differ"] += bits_unequal(k, p)
+        del k, p
+        res["ms"] += event_ms(lambda: compose.coarse_gdisp_batch(D), reps=3,
+                              cold=True)
+        res["bound_ms"] += 1e3 * coarse_bytes(D) / PEAK_BYTES_S
+        shape = "x".join(map(str, D.shape))
+        res["shapes"][shape] = res["shapes"].get(shape, 0) + 1
+    return res
+
+
+def coarse_kernel_counts(cfg, dev):
+    """torch.profiler's count of CUDA kernels in one coarse_gdisp_batch call
+    (the first of a bank epoch) and in one whole bank epoch
+    (make_bank_and_aux at the configuration's size). The profiler counts
+    the ctypes kernels reliably only in a process's first sessions, so
+    main() runs this in a process of its own (--coarse-kernel-counts)."""
+    from flowgen_torch.random.streams import root_key
+    from flowgen_torch.warpfields import compose
+    from flowgen_torch.warpfields import generator as wg
+
+    root = root_key(cfg.seed, dev)
+    calls, restore = record_launches(compose, "coarse_gdisp_batch")
+    try:
+        wg.make_bank_and_aux(root, 0, cfg)     # and the warm-up
+    finally:
+        restore()
+    D0 = calls[0][0][0]
+    del calls
+    return {"per_call": cuda_kernels(lambda: compose.coarse_gdisp_batch(D0)),
+            "epoch": cuda_kernels(lambda: wg.make_bank_and_aux(root, 0, cfg))}
+
+
+def phase_coarse_epoch(cfg, dev, card):
+    """Phase 8, end: epoch_coarse, and coarse_kernel_counts from a fresh
+    process of this script."""
+    res = epoch_coarse(cfg, dev)
+    r = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--coarse-kernel-counts"],
+        capture_output=True, text=True, timeout=600, cwd=HERE)
+    if r.returncode != 0:
+        fail(f"the kernel count's process failed:\n{r.stdout[-2000:]}"
+             f"{r.stderr[-4000:]}")
+    counts = json.loads(r.stdout.strip().splitlines()[-1])
+    res["cuda_kernels_per_call"] = counts["per_call"]
+    res["cuda_kernels_epoch"] = counts["epoch"]
+    print(f"coarse_gdisp_batch over one bank epoch ({cfg.width}x{cfg.height}, "
+          f"calls by shape {json.dumps(res['shapes'])}): {res['calls']} calls, "
+          f"each against its plain version (max |d| {res['max_abs_err']}, "
+          f"{res['bits_differ']} values with other bits); {res['ms']:.4f} ms "
+          f"summed (CUDA events, each call alone with a cold L2, mean of 3), "
+          f"bound {res['bound_ms']:.4f} ms summed by bytes; CUDA kernels "
+          f"(torch.profiler, in a fresh process): {counts['per_call']} in a "
+          f"call, {counts['epoch']} in the epoch [{card}]")
+    if res["max_abs_err"] != 0.0 or res["bits_differ"] or res["calls"] != 18:
+        fail("coarse_gdisp_batch over a bank epoch: calls or values are off")
+    if counts["per_call"] != 2:
+        fail(f"coarse_gdisp_batch ran {counts['per_call']} CUDA kernels in a "
+             "call, not its 2 (torch.profiler)")
+    return res
 
 
 def phase_quadrant(card, dev):
@@ -1247,7 +1367,8 @@ def record_launches(module, name):
         calls.append((args, kw))
         return orig(*args, **kw)
 
-    rec.launches = orig.launches      # the wrapper counts on the name it is under
+    # The wrapper counts on the name it is under (an older tree's may not).
+    rec.launches = getattr(orig, "launches", 0)
     setattr(module, name, rec)
 
     def restore():
@@ -1574,7 +1695,10 @@ def phase_affine_resample(card, dev):
     the slab texels its footprint covers read once (4 bytes each)."""
     import math
 
+    import ctypes
+
     import flowgen_torch
+    from flowgen_torch.ops import _build
     from flowgen_torch.ops import resample as res
 
     img = torch.from_numpy(flowgen_torch.procedural_atlas(
@@ -1593,14 +1717,21 @@ def phase_affine_resample(card, dev):
     err = float((k - p).abs().max())
     det = abs(float(t[0, 0] * t[1, 1] - t[0, 1] * t[1, 0]))
     bd = bound_of(wh * ww * (12 + 4 * det), 0.0)
+    # The floor under any launch's time: an empty kernel of one warp,
+    # launched and timed the same way.
+    lib = _build.load_fields_library()
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    floor_ms = event_ms(lambda: lib.flowgen_noop(stream))
     print(f"affine_resample, {wh}x{ww} window of a 512x384 texture's slab "
           f"{tuple(slab.shape)}: {ms:.4f} ms per launch (CUDA events, 10 "
-          f"launches); plain version {p_ms:.1f} ms; bound {bd['bound_ms']:.5f} "
-          f"ms by bytes ({bd['bytes']:.4e} bytes); max |d| vs plain {err} "
-          f"[{card}]")
+          f"launches); a launch that does no work (an empty kernel) "
+          f"{floor_ms:.4f} ms; plain version {p_ms:.1f} ms; bound "
+          f"{bd['bound_ms']:.5f} ms by bytes ({bd['bytes']:.4e} bytes); max "
+          f"|d| vs plain {err} [{card}]")
     if err != 0.0:
         fail("affine_resample differs from its plain version")
-    return {"ms": ms, "plain_ms": p_ms, "max_abs_err": err, **bd}
+    return {"ms": ms, "plain_ms": p_ms, "max_abs_err": err,
+            "launch_floor_ms": floor_ms, **bd}
 
 
 def phase_windowed(card, dev):
@@ -1679,6 +1810,7 @@ def phase_windowed(card, dev):
             "path": "0 launches on any path (standalone, as in the JAX "
                     "package)",
             "shape": "192x256 window of a 512x384 texture's slab",
+            "launch_floor_ms": ar["launch_floor_ms"],
         },
     ], bank_err
 
@@ -1733,14 +1865,15 @@ def main():
         fail("mode 9 main path output disagrees with the plain render")
     del first
     counts = res["launches"]
-    built = counts["coarse_gdisp"] // 18
+    built = counts["coarse_gdisp"] // 36
     if not all(counts[k] for k in FUSED_KERNELS) or (
-            counts["coarse_gdisp"] != 18 * built) or (
+            counts["coarse_gdisp"] != 36 * built) or (
             counts["hwarp_rows"] != 34 * built):
         fail(f"the mode-9 path's kernel launches are off: {counts}")
-    print(f"mode 9 bank epochs built: {built} (18 coarse_gdisp and 34 "
-          f"hwarp_rows launches each) for {res['dispatched']} steps "
-          f"dispatched, {cfg.warp_bank_reuse_steps} steps an epoch")
+    print(f"mode 9 bank epochs built: {built} (36 coarse_gdisp launches, "
+          f"its two kernels in each of 18 calls, and 34 hwarp_rows) for "
+          f"{res['dispatched']} steps dispatched, "
+          f"{cfg.warp_bank_reuse_steps} steps an epoch")
     layers = layer_breakdown(cfg, slabs, dev)
     print("mode 9 layers (ms per step, host clock, synchronized): "
           + json.dumps({k: round(v, 3) for k, v in layers.items()})
@@ -1753,10 +1886,14 @@ def main():
     t = phase_scene_timing("mode 9", args, opts, card)
     m9 = {"launches": counts["scene_render"], **t,
           "max_abs_err": max(worst9, g["max_abs_err"], t["max_abs_err"])}
-    bt = phase_bank_timing((("768", bank["f768"]), ("1536", bank["f1536"])), card)
+    f3072 = bank_doubling_inputs(sintel_cfg(mode=9), dev)[1]
+    bt = phase_bank_timing((("768", bank["f768"]), ("1536", bank["f1536"]),
+                            ("3072", f3072)), card)
+    del f3072
     h768, h1536 = bt["768"]["hwarp"], bt["1536"]["hwarp"]
     h_epoch = epoch_hwarp(cfg, dev, card)
-    c768, c1536 = bt["768"]["coarse"], bt["1536"]["coarse"]
+    c768, c1536, c3072 = (bt[k]["coarse"] for k in ("768", "1536", "3072"))
+    c_epoch = phase_coarse_epoch(cfg, dev, card)
     bank_err = bank["max_abs_err"]
     del bank, slabs, args
 
@@ -1787,14 +1924,17 @@ def main():
             "source": "flowgen_torch/csrc/fields.cu",
             "replaces": "flowgen/warpfields/pallas_fields.py:98",
             "launches": counts["coarse_gdisp"],
+            "calls": counts["coarse_gdisp"] // 2,
             "max_abs_err": max(bank_err, sintel_bank_err,
-                               c768["max_abs_err"], c1536["max_abs_err"]),
+                               c768["max_abs_err"], c1536["max_abs_err"],
+                               c3072["max_abs_err"], c_epoch["max_abs_err"]),
             "ms": c768["ms"], "plain_ms": c768["plain_ms"],
             "bound_ms": c768["bound_ms"], "bound_by": "bytes",
             "library_ms": None,
-            "shape": "the solve on 8 fields of 768^2 (16 of the 18 launches "
-                     "of an epoch); wrapper_* time coarse_gdisp_batch whole",
-            "at_1536": c1536,
+            "shape": "coarse_gdisp_batch whole (coarse_solve_kernel and "
+                     "upsample4_kernel, both counted in launches) on 8 "
+                     "fields of 768^2 (16 of the 18 calls of an epoch)",
+            "at_1536": c1536, "at_3072": c3072, "epoch": c_epoch,
         },
         {
             "name": "hwarp_rows", "route": "cuda",
@@ -1818,4 +1958,13 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--coarse-kernel-counts"]:
+        if not torch.cuda.is_available():
+            fail("torch.cuda.is_available() is false: this count needs a GPU")
+        import flowgen_torch
+
+        print(json.dumps(coarse_kernel_counts(
+            flowgen_torch.DataGenConfig(mode=9, batch_size=64, seed=0),
+            torch.device("cuda"))))
+    else:
+        main()

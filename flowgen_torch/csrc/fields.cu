@@ -1,18 +1,20 @@
 // Warp-field composition kernels of the mode-9 bank producer, on NVIDIA
-// Hopper: the coarse column-inverse solve and the row-tiled horizontal warp.
+// Hopper: the coarse column-inverse solve with its x4 upsample, and the
+// row-tiled horizontal warp.
 //
 // Replaces flowgen/warpfields/pallas_fields.py:
-//   * coarse_solve_kernel <- _coarse_solve_kernel (pallas_call in
-//     coarse_gdisp_batch);
-//   * hwarp_rows_kernel   <- _hwarp_kernel (pallas_call in _hwarp_rows).
+//   * coarse_solve_kernel + upsample4_kernel <- coarse_gdisp_batch (its
+//     pallas_call on _coarse_solve_kernel and the XLA around it: the
+//     strided subsample, transposes, scale and pads before, the slice,
+//     transpose and two _upsample2_plane after);
+//   * hwarp_rows_kernel <- _hwarp_kernel (pallas_call in _hwarp_rows).
 //
 // Both read their two bilinear taps per element through the TPU kernels'
 // banded rule (ops/pallas_resample.py:_banded_tap_pair): per block of
 // positions (all rows of a field x 128 lanes for the solve, row_tile x 128
 // for the warp) a band of `scan` 128-lane source tiles starts at the tile of
-// the block's smallest left tap, and a tap outside it reads 0. So one CTA
-// (a cluster for the warp) owns one block: it reduces the block's smallest
-// tap index, then computes.
+// the block's smallest left tap, and a tap outside it reads 0. So the CTAs
+// of one block reduce the block's smallest tap index, then compute.
 // The bank's 17 doublings are chaotic, so the lerp keeps the JAX package's
 // det_lerp exactly (p0 + round((p1 - p0) * t)), and the file is compiled
 // with -fmad=false.
@@ -30,9 +32,39 @@
 // splits each block over a cluster of small CTAs that share the band
 // minimum through distributed shared memory, and keeps a thread's rows and
 // four coalesced lanes unrolled so their loads are in flight together.
-// The coarse solve is a small sequential fixed point (9 lookups along each
-// coarse column): one CTA per (field, 128-lane tile), latency-bound, a
-// small part of a doubling.
+//
+// coarse_gdisp must read the coarse subsample of D's two channels once and
+// write the full-size plane once, so bytes bound it too (the write is 8x
+// the read). Its solve is a short sequential fixed point (9 banded lookups
+// along each coarse column): a chain of steps, each a block-wide minimum
+// and a dependent load, which one CTA per block (16 CTAs at 768^2) would
+// walk alone. So the solve
+//   * splits each (field, 128-lane tile) block over kSolveSplit = 16 CTAs
+//     (256 CTAs at 768^2), each owning a slab of rows whose iterate stays
+//     in registers for all the steps;
+//   * stages its rows of both planes in shared memory once, read straight
+//     from D's strided coarse samples (transposed, y scaled by 1/4, no copy
+//     in PyTorch): the lanes of its tile and a halo of kSolveHalo on each
+//     side, which holds every tap of displacements under 4 * kSolveHalo px;
+//     a tap the band allows outside the halo reads D itself, so any input
+//     gives the plain version's result;
+//   * needs a block minimum only where the band can move (more than `scan`
+//     tiles in the lattice: from 1536^2 up; at 768^2 every band is [0, 256)
+//     and no CTA waits on another) and never at the first step (d = 0: the
+//     block's smallest tap is its first lane); there the block's CTAs form
+//     a cluster, and each pushes its minimum into every peer's slot for the
+//     step with red.async, completing on the peer's mbarrier, and waits on
+//     its own: no cluster-wide barrier (and no GPU-scope fence) a step;
+//   * writes the coarse result untransposed through shared memory, so the
+//     upsample reads and writes along rows.
+// A slab holds at most 64 rows in registers (fields up to 4096 px wide);
+// past that coarse_solve_wide_kernel takes the same blocks, steps and
+// exchange with the iterate in global memory and every tap read from D.
+// upsample4_kernel then writes each fine 4x4 block from its 2x2 coarse
+// neighbourhood: the rounded (a + b) * 0.5 steps of two _upsample2 stages
+// (rows, then columns, twice, the last node replicated), one float4 store
+// a fine row. (Writing those blocks in the solve's epilogue instead, with
+// a seam kernel for the tiles' last lanes, measured slower at 768^2: PERF.md.)
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -42,18 +74,6 @@
 namespace flowgen {
 
 constexpr int kLanes = 128;
-constexpr int kRowsPerPass = 8;   // blockDim.y
-
-__device__ __forceinline__ int block_min_int(int v, int* smem) {
-  if (threadIdx.x == 0 && threadIdx.y == 0) *smem = INT_MAX;
-  __syncthreads();
-  v = __reduce_min_sync(0xffffffffu, v);
-  if ((threadIdx.x & 31) == 0) atomicMin(smem, v);
-  __syncthreads();
-  const int r = *smem;
-  __syncthreads();
-  return r;
-}
 
 // Left tap index of position u clipped to [0, wv - 1].
 __device__ __forceinline__ int left_tap(float u, int wv) {
@@ -83,40 +103,442 @@ __device__ __forceinline__ void band_of(int min_u0, int n_src, int scan,
   *hi = *lo + nscan * kLanes;
 }
 
-// gd[n, x, w] = dx[n, x, y*] with w = y* + dy[n, x, y*]: n_iter fixed-point
-// lerps d <- dy(w - d) along each row, then dx(w - d). Block (128, 8); grid
-// (Lp / 128, N). d lives in `out` between iterations (each element is read
-// and rewritten by its own thread; barriers separate the iterations).
-__global__ void __launch_bounds__(kLanes* kRowsPerPass)
-    coarse_solve_kernel(const float* __restrict__ dy,
-                        const float* __restrict__ dx, float* out, int R,
-                        int Lp, int Lv, int n_iter, int scan) {
-  __shared__ int smin;
-  const int n = blockIdx.y;
-  const int lane = blockIdx.x * kLanes + threadIdx.x;
-  const float wpos = (float)lane;
-  const size_t base = (size_t)n * R * Lp;
-  const int n_src = Lp / kLanes;
-  for (int r = threadIdx.y; r < R; r += kRowsPerPass) out[base + (size_t)r * Lp + lane] = 0.0f;
-  __syncthreads();
-  for (int it = 0; it <= n_iter; ++it) {
-    const float* src = it < n_iter ? dy : dx;
-    int m = INT_MAX;
-    for (int r = threadIdx.y; r < R; r += kRowsPerPass) {
-      const float d = out[base + (size_t)r * Lp + lane];
-      m = min(m, left_tap(__fsub_rn(wpos, d), Lv));
+// ---------------------------------------------------------------------------
+// Coarse column-inverse solve
+// ---------------------------------------------------------------------------
+
+constexpr int kCoarse = 4;             // lattice stride (two x2 upsamples)
+constexpr int kSolveSplit = 16;        // CTAs a block (non-portable cluster)
+constexpr int kSolveRows = 4;          // least rows of threads a CTA
+constexpr int kSolveHalo = 32;         // staged lanes each side of a tile
+constexpr int kSolveWin = kLanes + 2 * kSolveHalo;
+constexpr int kSolveStride = kSolveWin + 1;   // odd: staging spreads banks
+constexpr int kSolveMaxSteps = 16;
+constexpr int kSolveMaxItems = 8;      // rows a thread
+constexpr int kSolveMaxThreads = 1024;
+// Most rows a slab holds in registers; longer slabs take the wide kernel.
+constexpr int kSolveMaxRows = kSolveMaxItems * (kSolveMaxThreads / kLanes);
+constexpr int kWideThreads = 512;
+constexpr int kStageBatch = 8;         // loads a thread keeps in flight (x2)
+
+// Distributed shared memory and mbarriers (PTX, sm_90): a CTA's 32-bit
+// shared address, the same variable of cluster peer `rank`, and an mbarrier
+// whose phase completes when its one arrival (with the bytes it expects)
+// and those bytes of remote red.async operations are in.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ uint32_t peer_addr(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n\t.reg .pred done;\n"
+      "wait_%=:\n\t"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 done, [%0], %1;\n\t"
+      "@!done bra wait_%=;\n\t}" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+// min into the int at shared::cluster address `dst`, completing 4 bytes on
+// the mbarrier at shared::cluster address `bar` (the same CTA's).
+__device__ __forceinline__ void red_min_async(uint32_t dst, int v, uint32_t bar) {
+  asm volatile(
+      "red.async.relaxed.cluster.shared::cluster.mbarrier::complete_tx::bytes.min.s32 "
+      "[%0], %1, [%2];" ::"r"(dst),
+      "r"(v), "r"(bar)
+      : "memory");
+}
+
+// The solve's planes, read in place from D (N, Hd, Wd, 2) by its element
+// strides: dyT[n, r, l] = D[n, 4l, 4r, 1] * yscale, dxT[n, r, l] =
+// D[n, 4l, 4r, 0].
+struct CoarseSrc {
+  const float* D;
+  long long sN, sH, sW, sC;
+  float yscale;
+
+  __device__ __forceinline__ const float* at(int n, int l, int r) const {
+    return D + n * sN + (long long)(kCoarse * l) * sH +
+           (long long)(kCoarse * r) * sW;
+  }
+  __device__ __forceinline__ float dy(const float* p) const {
+    return __fmul_rn(__ldg(p + sC), yscale);
+  }
+  __device__ __forceinline__ float dx(const float* p) const { return __ldg(p); }
+};
+
+__device__ __forceinline__ float mid(float a, float b) {
+  return __fmul_rn(__fadd_rn(a, b), 0.5f);
+}
+
+// Fine rows 4i..4i+3, columns 4j..4j+3 of _upsample2(_upsample2(gd)) for
+// an (h, w) plane gd, from c00 = gd[i][j], c01 = gd[i][j1], c10 = gd[i1][j],
+// c11 = gd[i1][j1], i1 = min(i + 1, h - 1), j1 = min(j + 1, w - 1), into
+// o (the fine block's first element; fine rows W4 apart). The first stage's
+// nodes (2i + ka, 2j + kb), ka, kb in 0..2 clipped to (2h - 1, 2w - 1),
+// come from those four values; each stage takes its row midpoints first,
+// then the column midpoints of those, and replicates its last node.
+__device__ __forceinline__ void fine_block(float c00, float c01, float c10,
+                                           float c11, int i, int j, int h,
+                                           int w, float* __restrict__ o,
+                                           size_t W4) {
+  // gd at coarse row ii in {i, i1} and column jj in {j, j1}.
+  auto at = [&](int ii, int jj) {
+    return ii != i ? (jj != j ? c11 : c10) : (jj != j ? c01 : c00);
+  };
+  float u[3][3];
+#pragma unroll
+  for (int ka = 0; ka < 3; ++ka) {
+    const int a = min(2 * i + ka, 2 * h - 1);
+    const int ia = a >> 1;
+#pragma unroll
+    for (int kb = 0; kb < 3; ++kb) {
+      const int b = min(2 * j + kb, 2 * w - 1);
+      const int jb = b >> 1;
+      auto row = [&](int jj) {
+        const float v = at(ia, jj);
+        return (a & 1) ? mid(v, at(min(ia + 1, h - 1), jj)) : v;
+      };
+      const float v = row(jb);
+      u[ka][kb] = (b & 1) ? mid(v, row(min(jb + 1, w - 1))) : v;
     }
-    int lo, hi;
-    band_of(block_min_int(m, &smin), n_src, scan, &lo, &hi);
-    for (int r = threadIdx.y; r < R; r += kRowsPerPass) {
-      const size_t at = base + (size_t)r * Lp + lane;
-      const float d = out[at];
-      out[at] = banded_lerp_clamped(src + base + (size_t)r * Lp,
-                                    __fsub_rn(wpos, d), Lv, lo, hi);
+  }
+#pragma unroll
+  for (int ry = 0; ry < 4; ++ry) {
+    const int ka = ry >> 1;
+    float v[4];
+#pragma unroll
+    for (int rx = 0; rx < 4; ++rx) {
+      const int kb = rx >> 1;
+      auto row = [&](int k) {
+        return (ry & 1) ? mid(u[ka][k], u[ka + 1][k]) : u[ka][k];
+      };
+      const float r = row(kb);
+      v[rx] = (rx & 1) ? mid(r, row(kb + 1)) : r;
     }
-    __syncthreads();
+    *reinterpret_cast<float4*>(o + ry * W4) = make_float4(v[0], v[1], v[2], v[3]);
   }
 }
+
+// The block minimum of a solve step across the kSolveSplit CTAs of a
+// cluster: each CTA pushes its own minimum into every peer's slot for the
+// step (red.async, completing 4 bytes on the peer's mbarrier, the two
+// barriers taking the steps by parity, so a peer at most one step ahead
+// never lands in the wrong phase) and waits only for the pushes into its
+// own slot. Steps 1, 2, 3, ... use barrier it & 1 for the ((it - 1) >> 1)-th
+// time, so that is the phase each waits for. No CTA leaves while a peer may
+// still push into it: each waits for all of them at every step.
+struct StepExchange {
+  int cta_min[kSolveMaxSteps];    // this CTA's minimum a step
+  int block_min[kSolveMaxSteps];  // the block's, pushed by every CTA
+  uint64_t bar[2];                // steps by parity
+
+  // Every CTA of the cluster has started and set its slots and barriers
+  // before any pushes into them (a CTA barrier alone without `exchange`).
+  __device__ void init(bool exchange, int tid) {
+    if (tid < kSolveMaxSteps) {
+      cta_min[tid] = INT_MAX;
+      block_min[tid] = INT_MAX;
+    }
+    if (exchange && tid < 2) mbar_init(&bar[tid], 1);
+    if (exchange) {
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+      cooperative_groups::this_cluster().sync();
+    } else {
+      __syncthreads();
+    }
+  }
+  // The block's smallest of every thread's `m` at step `it` (1 or more);
+  // every thread of the CTA calls it.
+  __device__ int reduce(int m, int it, int tid) {
+    m = __reduce_min_sync(0xffffffffu, m);
+    if ((tid & 31) == 0) atomicMin(&cta_min[it], m);
+    __syncthreads();
+    const int p = it & 1;
+    if (tid == 0) mbar_arrive_expect(&bar[p], 4 * kSolveSplit);
+    if (tid < kSolveSplit)
+      red_min_async(peer_addr(smem_addr(&block_min[it]), tid), cta_min[it],
+                    peer_addr(smem_addr(&bar[p]), tid));
+    mbar_wait(&bar[p], ((it - 1) >> 1) & 1);
+    return block_min[it];
+  }
+};
+
+// gd[n, w, x] = dxT[n, x, y*] with w = y* + dyT[n, x, y*]: n_iter
+// fixed-point lerps d <- dyT(w - d) along each coarse row x, then dxT(w - d);
+// gd is (N, Lv, R), untransposed. Block (128, rows of threads); grid
+// kSolveSplit * N * n_src CTAs, kSolveSplit consecutive CTAs per (field,
+// tile) block, each owning rows [rank * rows_cta, +rows_cta), at most
+// kSolveMaxRows, and, when the band can move, forming a cluster. A thread's
+// rows past the CTA's last repeat that row: the same values, so no minimum
+// changes, and they are not written. Where the band cannot move, lanes past
+// Lv are not computed (each lane's steps are its own); where it can, they
+// are, for the block minimum.
+// Dynamic shared memory: 2 * rows_cta * kSolveStride floats.
+template <int ITEMS>
+__global__ void __launch_bounds__(kSolveMaxThreads)
+    coarse_solve_kernel(CoarseSrc src, float* __restrict__ gd, int R, int Lv,
+                        int rows_cta, int n_iter, int scan) {
+  extern __shared__ float s_src[];
+  __shared__ StepExchange xs;
+  const int n_src = (Lv + kLanes - 1) / kLanes;
+  const bool exchange = n_src > scan;   // else every band starts at tile 0
+  const int blk = blockIdx.x / kSolveSplit;
+  const int rank = blockIdx.x % kSolveSplit;
+  const int n = blk / n_src;
+  const int t = blk % n_src;
+  const int rt = blockDim.y;
+  const int nthreads = kLanes * rt;
+  const int tid = threadIdx.y * kLanes + threadIdx.x;
+  const int r0 = rank * rows_cta;
+  const int nrows = max(min(R - r0, rows_cta), 0);
+  const int wlo = max(t * kLanes - kSolveHalo, 0);
+  const int whi = min(t * kLanes + kLanes + kSolveHalo, Lv);
+  const int wn = whi - wlo;
+  float* s_dy = s_src;
+  float* s_dx = s_src + rows_cta * kSolveStride;
+
+  // Stage: consecutive threads take consecutive rows (x = 4r, 16 bytes
+  // apart in the bank's layout) of one coarse y; a thread's (row, lane)
+  // advances by nthreads without a division, and the loads of a batch are
+  // all in flight before their stores.
+  if (nrows > 0) {
+    const int total = nrows * wn;
+    const int dj = nthreads / nrows;
+    const int dr = nthreads - dj * nrows;
+    int rr = tid % nrows, j = tid / nrows;
+    for (int k = tid; k < total; k += kStageBatch * nthreads) {
+      float vy[kStageBatch], vx[kStageBatch];
+      int at[kStageBatch];
+#pragma unroll
+      for (int b = 0; b < kStageBatch; ++b) {
+        at[b] = -1;
+        if (k + b * nthreads < total) {
+          const float* p = src.at(n, wlo + j, r0 + rr);
+          vy[b] = src.dy(p);
+          vx[b] = src.dx(p);
+          at[b] = rr * kSolveStride + j;
+        }
+        rr += dr;
+        j += dj;
+        if (rr >= nrows) {
+          rr -= nrows;
+          ++j;
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < kStageBatch; ++b) {
+        if (at[b] >= 0) {
+          s_dy[at[b]] = vy[b];
+          s_dx[at[b]] = vx[b];
+        }
+      }
+    }
+  }
+  xs.init(exchange, tid);
+
+  const int lane = t * kLanes + threadIdx.x;
+  // A warp of lanes past Lv only computes where it counts in the minimum.
+  const bool idle = nrows == 0 || (!exchange && (lane & ~31) >= Lv);
+  const float wpos = (float)lane;
+  const float lvm1 = (float)(Lv - 1);
+  float d[ITEMS], fx[ITEMS];
+  int u0[ITEMS];
+#pragma unroll
+  for (int q = 0; q < ITEMS; ++q) d[q] = 0.0f;
+
+  for (int it = 0; it <= n_iter; ++it) {
+    // Positions and left taps of this step.
+    int m = INT_MAX;
+#pragma unroll
+    for (int q = 0; q < ITEMS; ++q) {
+      const float uc = fminf(fmaxf(__fsub_rn(wpos, d[q]), 0.0f), lvm1);
+      const float uf = floorf(uc);
+      fx[q] = __fsub_rn(uc, uf);
+      u0[q] = (int)uf;
+      m = min(m, u0[q]);
+    }
+    // d = 0 at the first step: the smallest left tap is the tile's first
+    // lane (t * 128 < Lv).
+    int bmin = t * kLanes;
+    if (it > 0 && exchange) bmin = xs.reduce(idle ? INT_MAX : m, it, tid);
+    int lo, hi;
+    band_of(bmin, n_src, scan, &lo, &hi);
+    const unsigned band = (unsigned)(hi - lo);
+    const bool last = it == n_iter;
+    const float* plane = last ? s_dx : s_dy;
+    if (idle) continue;
+    // Fast path: both taps (a, a + 1 < Lv) of every item staged, with no
+    // branch between items.
+    bool staged = true;
+#pragma unroll
+    for (int q = 0; q < ITEMS; ++q)
+      staged &= (unsigned)(u0[q] - wlo) < (unsigned)(wn - 1);
+    if (staged) {
+#pragma unroll
+      for (int q = 0; q < ITEMS; ++q) {
+        const int rr = min((int)threadIdx.y + rt * q, nrows - 1);
+        const float* row = plane + rr * kSolveStride - wlo;
+        const int a = u0[q];
+        const float v0 = row[a];
+        const float v1 = row[a + 1];
+        const float p0 = (unsigned)(a - lo) < band ? v0 : 0.0f;
+        const float p1 = (unsigned)(a + 1 - lo) < band ? v1 : 0.0f;
+        d[q] = __fadd_rn(p0, __fmul_rn(__fsub_rn(p1, p0), fx[q]));
+      }
+      continue;
+    }
+#pragma unroll
+    for (int q = 0; q < ITEMS; ++q) {
+      const int rr = min((int)threadIdx.y + rt * q, nrows - 1);
+      const float* row = plane + rr * kSolveStride;
+      const int a = u0[q];
+      float p[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int u = e ? min(a + 1, Lv - 1) : a;
+        p[e] = 0.0f;
+        if ((unsigned)(u - lo) >= band) continue;
+        if (u >= wlo && u < whi) {
+          p[e] = row[u - wlo];
+        } else {
+          const float* g = src.at(n, u, r0 + rr);
+          p[e] = last ? src.dx(g) : src.dy(g);
+        }
+      }
+      d[q] = __fadd_rn(p[0], __fmul_rn(__fsub_rn(p[1], p[0]), fx[q]));
+    }
+  }
+
+  // Write gd[n, lane, r0 + rr] through shared memory: each lane's rows are
+  // contiguous in gd.
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < ITEMS; ++q) {
+    const int rr = threadIdx.y + rt * q;
+    if (rr < nrows) s_dy[rr * kSolveStride + threadIdx.x] = d[q];
+  }
+  __syncthreads();
+  if (nrows > 0) {
+    const int total = nrows * min(Lv - t * kLanes, kLanes);
+    const int dl = nthreads / nrows;
+    const int dr = nthreads - dl * nrows;
+    int rr = tid % nrows, l = tid / nrows;
+    float* g = gd + ((size_t)n * Lv + t * kLanes) * R + r0;
+    for (int k = tid; k < total; k += nthreads) {
+      g[(size_t)l * R + rr] = s_dy[rr * kSolveStride + l];
+      rr += dr;
+      l += dl;
+      if (rr >= nrows) {
+        rr -= nrows;
+        ++l;
+      }
+    }
+  }
+}
+
+// The same solve for slabs longer than kSolveMaxRows (fields wider than
+// 4096 px): coarse_solve_kernel's blocks, bands and exchange, with the
+// iterate kept in `dbuf` between steps and every tap read from D. dbuf
+// holds (N, Ld, R): Ld = n_src * 128 lanes where the band can move (lanes
+// past Lv count in the minimum), Lv where it cannot (they are not
+// computed). A CTA's threads walk its (lane, row) positions, consecutive
+// threads on consecutive rows, whose dbuf entries and D samples lie
+// close. Grid and clusters as coarse_solve_kernel's; block kWideThreads.
+__global__ void __launch_bounds__(kWideThreads)
+    coarse_solve_wide_kernel(CoarseSrc src, float* __restrict__ dbuf,
+                             float* __restrict__ gd, int R, int Lv,
+                             int rows_cta, int n_iter, int scan) {
+  __shared__ StepExchange xs;
+  const int n_src = (Lv + kLanes - 1) / kLanes;
+  const bool exchange = n_src > scan;
+  const int Ld = exchange ? n_src * kLanes : Lv;
+  const int blk = blockIdx.x / kSolveSplit;
+  const int rank = blockIdx.x % kSolveSplit;
+  const int n = blk / n_src;
+  const int t = blk % n_src;
+  const int tid = threadIdx.x;
+  const int r0 = rank * rows_cta;
+  const int nrows = max(min(R - r0, rows_cta), 0);
+  const int total = nrows * min(Ld - t * kLanes, kLanes);
+  float* db = dbuf + ((size_t)n * Ld + t * kLanes) * R + r0;
+  const float lvm1 = (float)(Lv - 1);
+  xs.init(exchange, tid);
+
+  for (int it = 0; it <= n_iter; ++it) {
+    int bmin = t * kLanes;   // d = 0 at the first step, as above
+    if (it > 0 && exchange) {
+      int m = INT_MAX;
+      for (int k = tid; k < total; k += kWideThreads) {
+        const int rr = k % nrows, l = k / nrows;
+        const float w = (float)(t * kLanes + l);
+        const float uc =
+            fminf(fmaxf(__fsub_rn(w, db[(size_t)l * R + rr]), 0.0f), lvm1);
+        m = min(m, (int)floorf(uc));
+      }
+      bmin = xs.reduce(m, it, tid);
+    }
+    int lo, hi;
+    band_of(bmin, n_src, scan, &lo, &hi);
+    const bool last = it == n_iter;
+    for (int k = tid; k < total; k += kWideThreads) {
+      const int rr = k % nrows, l = k / nrows;
+      const int lane = t * kLanes + l;
+      const float d = it > 0 ? db[(size_t)l * R + rr] : 0.0f;
+      const float uc = fminf(fmaxf(__fsub_rn((float)lane, d), 0.0f), lvm1);
+      const float uf = floorf(uc);
+      const float fx = __fsub_rn(uc, uf);
+      const int a = (int)uf;
+      float p[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int u = e ? min(a + 1, Lv - 1) : a;
+        p[e] = 0.0f;
+        if (u < lo || u >= hi) continue;
+        const float* g = src.at(n, u, r0 + rr);
+        p[e] = last ? src.dx(g) : src.dy(g);
+      }
+      const float v = __fadd_rn(p[0], __fmul_rn(__fsub_rn(p[1], p[0]), fx));
+      if (!last)
+        db[(size_t)l * R + rr] = v;
+      else if (lane < Lv)
+        gd[((size_t)n * Lv + lane) * R + r0 + rr] = v;
+    }
+  }
+}
+
+// out (N, 4h, 4w) = _upsample2(_upsample2(gd)) for gd (N, h, w): one
+// thread per coarse node (n, i, j) writes its fine block; grid
+// (ceil(w / 128), h, N).
+__global__ void __launch_bounds__(kLanes)
+    upsample4_kernel(const float* __restrict__ gd, float* __restrict__ out,
+                     int h, int w) {
+  const int j = blockIdx.x * kLanes + threadIdx.x;
+  const int i = blockIdx.y;
+  const int n = blockIdx.z;
+  if (j >= w) return;
+  const float* g = gd + (size_t)n * h * w;
+  const int i1 = min(i + 1, h - 1);
+  const int j1 = min(j + 1, w - 1);
+  const size_t W4 = (size_t)4 * w;
+  fine_block(__ldg(g + (size_t)i * w + j), __ldg(g + (size_t)i * w + j1),
+             __ldg(g + (size_t)i1 * w + j), __ldg(g + (size_t)i1 * w + j1), i, j,
+             h, w, out + ((size_t)n * 4 * h + (size_t)4 * i) * W4 + (size_t)4 * j,
+             W4);
+}
+
+__global__ void noop_kernel() {}
 
 // out[g, x] = lerp of row g of `src` at x + disp[row(g), x], clamped to the
 // row, over the G = M * C * R stacked rows (width Sp) of (M, C, R, Sp)
@@ -226,14 +648,96 @@ __global__ void __launch_bounds__(kHwarpLaneStep* kHwarpRows)
 
 }  // namespace flowgen
 
-extern "C" int flowgen_coarse_solve(const float* dy, const float* dx,
-                                    float* out, int N, int R, int Lp, int Lv,
-                                    int n_iter, int scan, void* stream) {
-  if (Lp % flowgen::kLanes || N <= 0 || R <= 0) return (int)cudaErrorInvalidValue;
-  const dim3 block(flowgen::kLanes, flowgen::kRowsPerPass);
-  const dim3 grid(Lp / flowgen::kLanes, N);
-  flowgen::coarse_solve_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      dy, dx, out, R, Lp, Lv, n_iter, scan);
+namespace {
+
+// Launch one of the solve kernels over kSolveSplit CTAs a (field, tile)
+// block, a cluster of them where the band can move. Its attributes (room
+// for `smem` bytes, clusters of 16) are set at every launch: they hold for
+// the current device only.
+template <typename... Params, typename... Args>
+int launch_solve(void (*kernel)(Params...), int N, int n_src, bool exchange,
+                 dim3 block, int smem, cudaStream_t stream, Args... args) {
+  using namespace flowgen;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = exchange ? kSolveSplit : 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cfg.gridDim = dim3(kSolveSplit * N * n_src);
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The column-inverse solve of D (N, Hd, Wd, 2), element strides sN, sH, sW,
+// sC, on its 4x-coarse lattice: gd (N, Lv = Hd / 4, R = Wd / 4). Slabs of
+// more than kSolveMaxRows rows (Wd over 4096) take the wide kernel, which
+// keeps its iterate in `scratch`: N * Ld * R floats (Ld: Lv rounded up to
+// 128 lanes where the band can move, else Lv), unused otherwise.
+extern "C" int flowgen_coarse_solve(const float* D, long long sN, long long sH,
+                                    long long sW, long long sC, float yscale,
+                                    float* gd, float* scratch, int N, int Lv,
+                                    int R, int n_iter, int scan, void* stream) {
+  using namespace flowgen;
+  if (N <= 0 || R <= 0 || Lv <= 0 || n_iter < 0 || n_iter >= kSolveMaxSteps ||
+      scan <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int rows_cta = (R + kSolveSplit - 1) / kSolveSplit;
+  const int n_src = (Lv + kLanes - 1) / kLanes;
+  const bool exchange = n_src > scan;
+  const CoarseSrc src = {D, sN, sH, sW, sC, yscale};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (rows_cta > kSolveMaxRows)
+    return launch_solve(coarse_solve_wide_kernel, N, n_src, exchange,
+                        dim3(kWideThreads), 0, s, src, scratch, gd, R, Lv,
+                        rows_cta, n_iter, scan);
+  int rt = kSolveRows;
+  while (rt * kSolveMaxItems < rows_cta) rt *= 2;
+  const int items = (rows_cta + rt - 1) / rt;
+  const int smem = 2 * rows_cta * kSolveStride * (int)sizeof(float);
+  auto solve = [&](auto kernel) {
+    return launch_solve(kernel, N, n_src, exchange, dim3(kLanes, rt), smem, s,
+                        src, gd, R, Lv, rows_cta, n_iter, scan);
+  };
+  switch (items) {
+    case 1:
+    case 2: return solve(coarse_solve_kernel<2>);
+    case 3: return solve(coarse_solve_kernel<3>);
+    case 4: return solve(coarse_solve_kernel<4>);
+    case 5:
+    case 6: return solve(coarse_solve_kernel<6>);
+    default: return solve(coarse_solve_kernel<8>);
+  }
+}
+
+// out (N, 4h, 4w) = two x2 upsamples of gd (N, h, w), both contiguous.
+extern "C" int flowgen_upsample4(const float* gd, float* out, int N, int h,
+                                 int w, void* stream) {
+  using namespace flowgen;
+  if (N <= 0 || h <= 0 || w <= 0 || h > 65535 || N > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((w + kLanes - 1) / kLanes, h, N);
+  upsample4_kernel<<<grid, kLanes, 0, (cudaStream_t)stream>>>(gd, out, h, w);
+  return (int)cudaGetLastError();
+}
+
+// An empty kernel of one warp: the time of a launch that does no work.
+extern "C" int flowgen_noop(void* stream) {
+  flowgen::noop_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

@@ -131,9 +131,15 @@ def load_scene_library():
 def load_fields_library():
     lib = _load("flowgen_fields")
     if lib.flowgen_coarse_solve.argtypes is None:
-        lib.flowgen_coarse_solve.argtypes = [ctypes.c_void_p] * 3 + [
-            ctypes.c_int] * 6 + [ctypes.c_void_p]
+        lib.flowgen_coarse_solve.argtypes = (
+            [ctypes.c_void_p] + [ctypes.c_longlong] * 4 + [ctypes.c_float]
+            + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         lib.flowgen_coarse_solve.restype = ctypes.c_int
+        lib.flowgen_upsample4.argtypes = [ctypes.c_void_p] * 2 + [
+            ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.flowgen_upsample4.restype = ctypes.c_int
+        lib.flowgen_noop.argtypes = [ctypes.c_void_p]
+        lib.flowgen_noop.restype = ctypes.c_int
         lib.flowgen_hwarp_rows.argtypes = [ctypes.c_void_p] * 3 + [
             ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.flowgen_hwarp_rows.restype = ctypes.c_int

@@ -9,21 +9,23 @@ x-displacement at the row pass 2 will fetch. That column inverse is a
 per-column fixed point ``w = y + f_y(x, y)``, solved on a 4x-coarse lattice
 (``coarse_gdisp_batch``) and upsampled by interleaving.
 
-Two kernels, each with its plain PyTorch version beside it:
+Two wrappers of kernels, each with its plain PyTorch version beside it:
 
-* ``coarse_solve``, the solve inside ``coarse_gdisp_batch`` ->
-  ``csrc/fields.cu:coarse_solve_kernel`` (TPU kernel:
-  ``pallas_fields.py:_coarse_solve_kernel`` via ``coarse_gdisp_batch``);
+* ``coarse_gdisp_batch`` (TPU kernel: ``pallas_fields.py:_coarse_solve_kernel``
+  via ``coarse_gdisp_batch``) -> ``csrc/fields.cu:coarse_solve_kernel``
+  (the solve, reading D's strided coarse samples in place) and
+  ``upsample4_kernel`` (the x4 upsample), each launch counted in
+  ``coarse_gdisp_batch.launches``;
 * ``hwarp_rows`` -> ``csrc/fields.cu:hwarp_rows_kernel`` (TPU kernel:
-  ``pallas_fields.py:_hwarp_kernel`` via ``_hwarp_rows``).
+  ``pallas_fields.py:_hwarp_kernel`` via ``_hwarp_rows``), counted in
+  ``hwarp_rows.launches``.
 
-A CUDA tensor launches the kernel (counted in ``<function>.launches``); a
-CPU tensor runs the plain version. Inside ``with plain_versions():`` the
-plain versions run on any device: the kernel-vs-plain comparisons on the
-card use it. Both read their taps through the JAX kernels' banded rule
-(``ops/resample.py:banded_taps``) and keep its order of operations, so the
-bank is the same bit for bit on the CPU, on the card and in the JAX
-package.
+A CUDA tensor launches the kernels; a CPU tensor runs the plain version.
+Inside ``with plain_versions():`` the plain versions run on any device:
+the kernel-vs-plain comparisons on the card use it. Both read their taps
+through the JAX kernels' banded rule (``ops/resample.py:banded_taps``) and
+keep its order of operations, so the bank is the same bit for bit on the
+CPU, on the card and in the JAX package.
 """
 
 from __future__ import annotations
@@ -119,31 +121,18 @@ def coarse_solve_inputs(D):
     return dyT, dxT, Hc
 
 
-def coarse_solve(dyT, dxT, Lv):
-    """The column-inverse fixed point on the planes of
-    :func:`coarse_solve_inputs`: gdT (N, R, Lp). CUDA tensors launch
-    ``coarse_solve_kernel`` (counted in ``coarse_solve.launches``); CPU
-    tensors run the plain version."""
-    if _runs_plain("coarse_solve", dyT):
-        return _coarse_solve_plain(dyT, dxT, Lv)
-    from ..ops._build import load_fields_library
-
-    _check_cuda("coarse_solve", dyT, dxT)
-    N, R, Lp = dyT.shape
-    out = torch.empty_like(dyT)
-    lib = load_fields_library()
-    err = lib.flowgen_coarse_solve(
-        _ptr(dyT), _ptr(dxT), _ptr(out), N, R, Lp, Lv, SOLVE_ITERS,
-        COARSE_SCAN,
-        ctypes.c_void_p(torch.cuda.current_stream(dyT.device).cuda_stream),
-    )
-    if err != 0:
-        raise RuntimeError(f"coarse_solve kernel launch failed: CUDA error {err}")
-    coarse_solve.launches += 1
-    return out
+def _stream(t):
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-coarse_solve.launches = 0
+def coarse_gdisp_plain(D):
+    """The plain version of :func:`coarse_gdisp_batch`: the solve on the
+    planes of :func:`coarse_solve_inputs`, then two ``_upsample2``."""
+    dyT, dxT, Hc = coarse_solve_inputs(D)
+    gd = _coarse_solve_plain(dyT, dxT, Hc)[..., :Hc].transpose(1, 2)
+    for _ in range(COARSE.bit_length() - 1):
+        gd = _upsample2(gd)
+    return gd
 
 
 def coarse_gdisp_batch(D):
@@ -151,12 +140,43 @@ def coarse_gdisp_batch(D):
     displacement fields ``D`` (N, Hd, Wd, 2) in pixels (any strides):
     gdisp(x, w) = D_x(x, y*), w = y* + D_y(x, y*). Solved on the
     COARSE-strided transposed lattice, then upsampled x2 per octave.
-    Returns (N, Hd, Wd) f32."""
-    dyT, dxT, Hc = coarse_solve_inputs(D)
-    gd = coarse_solve(dyT, dxT, Hc)[..., :Hc].transpose(1, 2)
-    for _ in range(COARSE.bit_length() - 1):
-        gd = _upsample2(gd)
-    return gd
+    Returns (N, Hd, Wd) f32.
+
+    A CUDA ``D`` (float32) launches the solve (``coarse_solve_kernel``, or
+    ``coarse_solve_wide_kernel`` for Wd over 4096), which reads the solve's
+    planes straight from ``D`` and writes the coarse result (N, Hd/4,
+    Wd/4), then ``upsample4_kernel``; each launch counts in
+    ``coarse_gdisp_batch.launches``, and the two output allocations are its
+    only PyTorch calls (the wide solve keeps its iterate in the fine
+    output, which the upsample then overwrites). A CPU ``D`` runs
+    :func:`coarse_gdisp_plain`."""
+    if _runs_plain("coarse_gdisp_batch", D):
+        return coarse_gdisp_plain(D)
+    from ..ops._build import load_fields_library
+
+    N, Hd, Wd, C = D.shape
+    if D.dtype != torch.float32 or C != 2 or Hd % COARSE or Wd % COARSE:
+        raise ValueError("coarse_gdisp_batch: expects float32 (N, Hd, Wd, 2) "
+                         f"with Hd and Wd multiples of {COARSE}")
+    Hc, Wc = Hd // COARSE, Wd // COARSE
+    gd = torch.empty((N, Hc, Wc), dtype=torch.float32, device=D.device)
+    out = torch.empty((N, Hd, Wd), dtype=torch.float32, device=D.device)
+    lib = load_fields_library()
+    stream = _stream(D)
+    err = lib.flowgen_coarse_solve(
+        _ptr(D), *D.stride(), 1.0 / COARSE, _ptr(gd), _ptr(out), N, Hc, Wc,
+        SOLVE_ITERS, COARSE_SCAN, stream)
+    if err != 0:
+        raise RuntimeError(f"coarse_solve kernel launch failed: CUDA error {err}")
+    coarse_gdisp_batch.launches += 1
+    err = lib.flowgen_upsample4(_ptr(gd), _ptr(out), N, Hc, Wc, stream)
+    if err != 0:
+        raise RuntimeError(f"upsample4 kernel launch failed: CUDA error {err}")
+    coarse_gdisp_batch.launches += 1
+    return out
+
+
+coarse_gdisp_batch.launches = 0
 
 
 # ---------------------------------------------------------------------------

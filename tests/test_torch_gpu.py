@@ -118,24 +118,74 @@ def _smooth_fields(m, s, mag, dev):
     return f * (mag / f.abs().amax(dim=(1, 2, 3), keepdim=True))
 
 
-@pytest.mark.parametrize("s", [192, 384, 768])
+@pytest.mark.parametrize("s", [192, 384, 768, 1536])
 def test_fields_kernels_match_plain(s):
+    """The bank kernels on smooth fields; at 1536 the coarse lattice has
+    three lane tiles, so the solve's band can move and its CTAs exchange
+    their minima."""
     from flowgen_torch.warpfields import compose
 
     _need_card()
     dev = torch.device("cuda")
     f = _smooth_fields(4, s, 12.0, dev)
-    c0, h0 = compose.coarse_solve.launches, compose.hwarp_rows.launches
+    c0, h0 = compose.coarse_gdisp_batch.launches, compose.hwarp_rows.launches
     gd = compose.coarse_gdisp_batch(f.permute(0, 2, 3, 1))
     out = compose.displace_planes_batch(f, gd, f[:, 1])
     torch.cuda.synchronize()
-    assert compose.coarse_solve.launches == c0 + 1
+    assert compose.coarse_gdisp_batch.launches == c0 + 2   # solve, upsample
     assert compose.hwarp_rows.launches == h0 + 2
     fc = f.cpu()
     gd_p = compose.coarse_gdisp_batch(fc.permute(0, 2, 3, 1))
     out_p = compose.displace_planes_batch(fc, gd_p, fc[:, 1])
     assert torch.equal(gd.cpu(), gd_p)
     assert torch.equal(out.cpu(), out_p)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "cropped", "transposed"])
+def test_coarse_gdisp_any_strides_matches_plain(layout):
+    """coarse_gdisp_batch reads D in place by its strides: layouts other
+    than the bank's permuted planes, at 1536 with displacements up to 200
+    px (taps past the solve's staged halo), bit for bit."""
+    from flowgen_torch.warpfields import compose
+
+    _need_card()
+    dev = torch.device("cuda")
+    s = 1536
+    f = _smooth_fields(2, s, 200.0, dev)
+    if layout == "contiguous":
+        D = f.permute(0, 2, 3, 1).contiguous()
+    elif layout == "cropped":
+        big = torch.nn.functional.pad(f, (12, 4, 8, 0))
+        D = big[:, :, 8 : 8 + s, 12 : 12 + s].permute(0, 2, 3, 1)
+    else:
+        D = f.permute(0, 3, 2, 1)
+    gd = compose.coarse_gdisp_batch(D)
+    torch.cuda.synchronize()
+    want = compose.coarse_gdisp_batch(D.cpu())
+    assert torch.equal(gd.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("hd,wd", [(4608, 4608), (512, 8192)])
+def test_coarse_gdisp_wide_matches_plain(hd, wd):
+    """Fields over 4096 px wide, whose slabs are longer than the solve holds
+    in registers, take the wide solve: at 4608^2 (the big fields of
+    1536-px frames) its CTAs exchange their minima, at 512 x 8192 (one lane
+    tile) they need not; bit for bit against the plain version on the
+    card."""
+    from flowgen_torch.warpfields import compose
+
+    _need_card()
+    dev = torch.device("cuda")
+    f = _smooth_fields(2, max(hd, wd), 60.0, dev)[:, :, :hd, :wd]
+    D = f.permute(0, 2, 3, 1)
+    c0 = compose.coarse_gdisp_batch.launches
+    gd = compose.coarse_gdisp_batch(D)
+    assert compose.coarse_gdisp_batch.launches == c0 + 2   # solve, upsample
+    with compose.plain_versions():
+        want = compose.coarse_gdisp_batch(D)
+    torch.cuda.synchronize()
+    assert gd.shape == (2, hd, wd)
+    assert torch.equal(gd.view(torch.int32), want.view(torch.int32))
 
 
 def test_bank_cuda_matches_plain():

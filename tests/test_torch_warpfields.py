@@ -171,6 +171,52 @@ def test_bank_kernels_plain_match_jax(ref):
     assert float(gd.abs().max()) > 1.0
 
 
+def _band_starts(D):
+    """The band's first tile of every (step, field, lane tile) of the plain
+    solve on ``D``: (SOLVE_ITERS + 1, N, n_src) int64."""
+    from flowgen_torch.ops.resample import banded_lerp
+
+    dyT, dxT, Lv = tcomp.coarse_solve_inputs(D)
+    N, R, Lp = dyT.shape
+    n_src = Lp // 128
+    wpos = torch.arange(Lp, dtype=torch.float32).expand(N * R, Lp)
+    d = torch.zeros_like(wpos)
+    starts = []
+    for it in range(tcomp.SOLVE_ITERS + 1):
+        u0 = torch.floor(torch.clamp(wpos - d, 0.0, float(Lv - 1))).long()
+        bmin = u0.reshape(N, R, n_src, 128).amin(dim=(1, 3))
+        starts.append(torch.clamp(bmin >> 7, 0, n_src - tcomp.COARSE_SCAN))
+        src = (dyT if it < tcomp.SOLVE_ITERS else dxT).reshape(N * R, Lp)
+        d = banded_lerp(src, wpos - d, R, tcomp.COARSE_SCAN, Lv, clamp_oob=True)
+    return torch.stack(starts)
+
+
+def test_coarse_gdisp_band_moves_matches_jax():
+    """2 fields of 1536^2 (Hc = 384: three lane tiles, so the band's first
+    tile can move), smooth displacements up to 60 px whose y channel is
+    nowhere positive in field 0 and nowhere negative in field 1: the middle
+    tile's band starts at tile 1 in field 0 and at tile 0 in field 1. The
+    plain coarse_gdisp_batch equals the JAX kernel in interpret mode bit for
+    bit."""
+    S = 1536
+    rng = np.random.default_rng(7)
+    y = np.arange(S, dtype=np.float32)[:, None]
+    x = np.arange(S, dtype=np.float32)[None, :]
+    D = np.zeros((2, S, S, 2), np.float32)
+    for m, sign in enumerate((-1.0, 1.0)):
+        ph = rng.random(3).astype(np.float32) * 6.0
+        bump = 0.5 - 0.5 * np.cos(y * (2 * np.pi / S) + ph[0] * 0.1)
+        D[m, ..., 1] = sign * 60.0 * bump * (0.6 + 0.4 * np.sin(x * 0.004 + ph[1]))
+        D[m, ..., 0] = 45.0 * np.sin(y * 0.003 + x * 0.005 + ph[2])
+    starts = _band_starts(torch.from_numpy(D))
+    assert bool((starts[:, 0, 1] == 1).all())
+    assert bool((starts[1:, 1, 1] == 0).any())
+    gd = tcomp.coarse_gdisp_batch(torch.from_numpy(D))
+    jgd = jpf.coarse_gdisp_batch(jnp.asarray(D), interpret=True)
+    _bit_equal(gd, jgd)
+    assert float(gd.abs().max()) > 30.0
+
+
 def test_make_bank_and_aux_meets_bank_gate(ref):
     _, tc = _cfgs()
     bank, aux = tg.make_bank_and_aux(ts.root_key(SEED), STEP, tc)
@@ -245,7 +291,7 @@ def test_bank_kernel_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         tcomp.hwarp_rows(planes, planes[:, 0])
     with pytest.raises(ValueError, match="unsupported device"):
-        tcomp.coarse_solve(planes[0], planes[0], 96)
+        tcomp.coarse_gdisp_batch(planes.permute(0, 2, 3, 1))
     with pytest.raises(RuntimeError):
         with tcomp.plain_versions():
             assert tcomp._plain
