@@ -5,8 +5,9 @@
 
 Phases (any failure exits non-zero before the final line):
   1. versions, the card's name and power limit, and the build of every CUDA
-     kernel source in flowgen_torch/csrc (one nvcc each, started together),
-     with the ptxas register / shared-memory / spill summary;
+     kernel source in flowgen_torch/csrc (one nvcc each) and of the native
+     texture loader (g++), all started together, with the ptxas register /
+     shared-memory / spill summary;
   2. mode 7, scene kernel vs plain: scenes from seed 0 at 512x384, B=4,
      rendered by the CUDA scene kernel and by its plain PyTorch version on
      the same tables (background only first, then the full scene), held to
@@ -86,9 +87,26 @@ Phases (any failure exits non-zero before the final line):
      bit, timed and summed the same way; the
      standalone affine_resample on a 192x256 window of a 512x384 texture's
      slab: CUDA events, the plain versions once, the bound, and beside it an
-     empty kernel's launch timed the same way (the floor); then one JSON
-     line {"kernels": [...]} with six rows, and last the line {"ok": true,
-     "device": {...}}.
+     empty kernel's launch timed the same way (the floor);
+ 16. photometric augmentation in mode 7 at 512x384, B=64: the CUDA kernel
+     (csrc/photometric.cu) against its plain version on step 0's rendered
+     frames, bit for bit; its time by CUDA events, the plain version's and
+     the bound (bytes against the hash's int32 operations); the pipelined
+     main path through Generator with the stage (its step 0 held against
+     the kernel's output) and without it, in the same call;
+ 17. a TextureDB of 64 texture files written from seed 0 in three size
+     classes (768x1024, 300x400 small, 1536x2048 large), read from a list
+     file through atlas_for_config (native field of view) and, for the
+     canonical atlas, through the native loader (built with g++ in phase
+     1); in modes 7 and 13 (flow1 and masks) at 512x384, B=64, the scene
+     kernel against its plain version on step 0's tables bit for bit and
+     timed (as phase 4), and the main path through Generator with its
+     throughput and peak memory; the windowed renderer at 1024x436, B=4,
+     mode 7, from the database's canonical array, through the window
+     kernels against their plain versions, bit for bit (the sign of a zero
+     aside);
+then one JSON line {"kernels": [...]} with seven rows, and last the line
+{"ok": true, "device": {...}}.
 
 It needs the repository (it imports flowgen_torch from its own directory),
 a CUDA card and nvcc. It imports nothing of JAX or of the JAX package.
@@ -162,7 +180,7 @@ def ptxas_summary(log: str):
 
 
 def kernel_counters():
-    from flowgen_torch.ops import resample, window
+    from flowgen_torch.ops import photometric, resample, window
     from flowgen_torch.ops import scene as ps
     from flowgen_torch.warpfields import compose
 
@@ -171,7 +189,8 @@ def kernel_counters():
             "hwarp_rows": compose.hwarp_rows,
             "object_window": window.object_window,
             "polygon_coverage": window.polygon_coverage,
-            "affine_resample": resample.affine_resample}
+            "affine_resample": resample.affine_resample,
+            "photometric": photometric.augment_batch}
 
 
 FUSED_KERNELS = ("scene_render", "coarse_gdisp", "hwarp_rows")
@@ -545,10 +564,11 @@ def host_ms(fn):
     return 1e3 * (time.perf_counter() - t0), out
 
 
-def run_main_path(cfg, atlas, card, n_steps=5, prof_steps=3):
+def run_main_path(cfg, atlas, card, n_steps=5, prof_steps=3, label=""):
     """Drive ``Generator`` with every kernel count at 0 before: 2 warm-up
     and ``n_steps`` timed steps, then ``prof_steps`` profiled ones. Returns
-    the first batch, the last batch and the numbers."""
+    the first batch and the numbers. ``label`` names the run's texture
+    bank or stage in the lines it prints."""
     from flowgen_torch.pipeline.generator import Generator, use_fused_path
 
     torch.cuda.synchronize()
@@ -588,8 +608,10 @@ def run_main_path(cfg, atlas, card, n_steps=5, prof_steps=3):
         im = out[k]
         if tuple(im.shape) != (B, H, W, 3):
             fail(f"image shape {tuple(im.shape)}")
-        if not bool(((im == im.round()) & (im >= 0) & (im <= 255)).all()):
-            fail("images are not integer values in [0, 255]")
+        if not bool((torch.isfinite(im) & (im >= 0) & (im <= 255)).all()):
+            fail("image values outside [0, 255]")
+        if not cfg.photometric_augment and not bool((im == im.round()).all()):
+            fail("images are not integer values")
     for k in want & {"flow0", "flow1"}:
         if tuple(out[k].shape) != (B, H, W, 2):
             fail(f"{k} shape {tuple(out[k].shape)}")
@@ -604,6 +626,10 @@ def run_main_path(cfg, atlas, card, n_steps=5, prof_steps=3):
             fail(f"{k} is constant")
     if counts["affine_resample"]:
         fail("a main path launched the standalone affine_resample")
+    if counts["photometric"] != (dispatched if cfg.photometric_augment
+                                 else 0):
+        fail(f"photometric launches {counts['photometric']} for "
+             f"{dispatched} steps dispatched")
     if use_fused_path(cfg, "cuda"):
         if counts["scene_render"] != dispatched:
             fail(f"scene kernel launches {counts['scene_render']} != steps "
@@ -612,7 +638,7 @@ def run_main_path(cfg, atlas, card, n_steps=5, prof_steps=3):
             fail(f"the fused path launched window kernels: {counts}")
     elif counts["scene_render"] or not counts["object_window"]:
         fail(f"the windowed path's kernel launches are off: {counts}")
-    label = f"mode {cfg.mode}, B={B}, {W}x{H}"
+    label = f"mode {cfg.mode}, B={B}, {W}x{H}{label}"
     print(f"main path ({label}): {res['ms_per_step']:.2f} ms/step, "
           f"{res['samples_per_s']:.1f} samples/s over {n_steps} timed steps, "
           f"peak memory {res['peak_gib']:.2f} GiB, kernel launches "
@@ -1815,6 +1841,235 @@ def phase_windowed(card, dev):
     ], bank_err
 
 
+# int32 operations per value of the photometric kernel's hash:
+# threefry2x32's 20 rounds of add, rotate and xor, its 5 key injections of
+# 2 adds, the counter's add and the output words' xor, then the shift and
+# the or that make the uniform's mantissa (csrc/photometric.cu).
+OPS_PHOTOMETRIC_VALUE = 74
+# H100 SXM int32 rate outside the tensor cores: 132 SMs x 64 INT32 lanes x
+# 1.98 GHz (the clock of the data sheet's 67 TFLOP/s float32 = 132 x 128
+# lanes x 2 x 1.98 GHz).
+PEAK_INT32_S = 132 * 64 * 1.98e9
+
+
+def photometric_bound(n_values: int):
+    """Least time for the photometric pass over ``n_values`` float32
+    values: each read once and written once (8 bytes), and the hash's int32
+    operations at the card's int32 rate."""
+    nbytes = 8.0 * n_values
+    ops = float(OPS_PHOTOMETRIC_VALUE) * n_values
+    t_b, t_o = nbytes / PEAK_BYTES_S, ops / PEAK_INT32_S
+    return {"bound_ms": 1e3 * max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "bytes": nbytes, "operations": ops,
+            "bytes_ms": 1e3 * t_b, "ops_ms": 1e3 * t_o}
+
+
+def phase_photometric(card, dev):
+    """Phase 16: photometric augmentation in mode 7, 512x384, B=64. The
+    kernel against its plain version on step 0's rendered frames, bit for
+    bit; its time by CUDA events beside the plain version's and the bound;
+    then the pipelined main path through Generator with the stage and the
+    same run without it, back to back. Returns the kernel's row."""
+    import dataclasses
+
+    import flowgen_torch
+    from flowgen_torch.ops import photometric
+    from flowgen_torch.ops import scene as ps
+    from flowgen_torch.pipeline.generator import make_slab_packer
+    from flowgen_torch.random.streams import root_key
+
+    cfg = flowgen_torch.DataGenConfig(mode=7, batch_size=64, seed=0)
+    atlas = procedural_atlas(cfg.height, cfg.width)
+    slabs = make_slab_packer(cfg, dev)(atlas)
+    args, opts = scene_tables(cfg, 0, 0, slabs, dev)
+    frames = as_batch(ps.scene_render(*args, **opts))
+    i0, i1 = frames["image0"].contiguous(), frames["image1"].contiguous()
+    del frames, args, slabs
+    root = root_key(cfg.seed, dev)
+    idx = torch.arange(cfg.batch_size, device=dev)
+    k0, k1 = photometric.augment_batch(root, idx, i0, i1)
+    torch.cuda.synchronize()
+    p_ms, (p0, p1) = host_ms(
+        lambda: photometric.augment_batch_plain(root, idx, i0, i1))
+    bits = bits_differ(k0, p0) + bits_differ(k1, p1)
+    err = max(float((k0 - p0).abs().max()), float((k1 - p1).abs().max()))
+    del p0, p1
+    k_ms = event_ms(lambda: photometric.augment_batch(root, idx, i0, i1))
+    bd = photometric_bound(2 * i0.numel())
+    print(f"photometric kernel (mode 7, B=64, 512x384): {k_ms:.4f} ms per "
+          f"launch (CUDA events, 10 launches); plain version {p_ms:.1f} ms; "
+          f"bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} (bytes "
+          f"{bd['bytes']:.4e}: {bd['bytes_ms']:.4f} ms; int32 operations "
+          f"{bd['operations']:.4e}: {bd['ops_ms']:.4f} ms) [{card}]")
+    print(f"photometric kernel vs plain (B=64): max |d| {err}, {bits} "
+          "values with other bits")
+    if bits or err != 0.0:
+        fail("the photometric kernel differs from its plain version")
+
+    _, off = run_main_path(cfg, atlas, card, label=", no photometric")
+    cfg_p = dataclasses.replace(cfg, photometric_augment=True)
+    first, on = run_main_path(cfg_p, atlas, card, label=", photometric")
+    step0 = (bits_differ(first["image0"], k0)
+             + bits_differ(first["image1"], k1))
+    print(f"photometric main path step 0 vs the kernel's output above: "
+          f"{step0} values with other bits")
+    if step0:
+        fail("the photometric main path disagrees with the kernel's output")
+    print(f"photometric pipelined (mode 7, B=64): {on['ms_per_step']:.2f} "
+          f"ms/step, {on['samples_per_s']:.1f} samples/s with the stage; "
+          f"{off['ms_per_step']:.2f} ms/step, {off['samples_per_s']:.1f} "
+          f"samples/s without it, same call [{card}]")
+    return {
+        "name": "photometric", "route": "cuda",
+        "source": "flowgen_torch/csrc/photometric.cu",
+        "replaces": "flowgen/ops/photometric.py:82",
+        "launches": on["launches"]["photometric"], "max_abs_err": err,
+        "ms": k_ms, "plain_ms": p_ms, "bound_ms": bd["bound_ms"],
+        "bound_by": bd["bound_by"], "library_ms": None,
+        "library": "no single PyTorch call computes it",
+        "path": "mode 7 with photometric_augment, B=64",
+        "shape": "64 pairs of 384x512x3 float32 frames",
+        "replaces_note": "XLA in the JAX package (no pallas_call): the "
+                         "fused elementwise loop of augment_batch",
+        "pipelined": {"with": on["ms_per_step"], "without": off["ms_per_step"]},
+    }
+
+
+# The TextureDB phase's sources: (class, height, width). Canonical is 2H x
+# 2W of 512x384; small takes the whole-image fallback (under 384x512);
+# large has a tighter field of view than the canonical resize.
+TEXDB_CLASSES = (("canonical", 768, 1024), ("small", 300, 400),
+                 ("large", 1536, 2048))
+
+
+def write_texture_files(n: int = 64, seed: int = 0):
+    """``n`` texture files made from ``seed`` (blocks of random colours,
+    cells of 4-32 px), cycling through the three size classes, written as
+    binary PPM under build/smoke_textures with a list file. Returns the
+    list file's path."""
+    rng = np.random.default_rng(seed)
+    out = os.path.join(HERE, "build", "smoke_textures")
+    os.makedirs(out, exist_ok=True)
+    paths = []
+    for t in range(n):
+        name, h, w = TEXDB_CLASSES[t % 3]
+        cell = int(rng.integers(4, 33))
+        base = rng.integers(0, 256, (h // cell + 1, w // cell + 1, 3),
+                            dtype=np.uint8)
+        img = np.repeat(np.repeat(base, cell, 0), cell, 1)[:h, :w]
+        path = os.path.join(out, f"tex{t:02d}_{name}.ppm")
+        with open(path, "wb") as f:
+            f.write(b"P6\n%d %d\n255\n" % (w, h))
+            f.write(np.ascontiguousarray(img).tobytes())
+        paths.append(path)
+    list_file = os.path.join(out, "textures.txt")
+    with open(list_file, "w") as f:
+        f.write("\n".join(paths) + "\n")
+    return list_file
+
+
+def phase_texture_db(card, dev):
+    """Phase 17: a TextureDB of 64 sources in three size classes, loaded
+    from a list file through the port's loader path (``atlas_for_config``:
+    PIL decode, ``build_texture_db``), and the canonical atlas of the same
+    files through the native loader. In modes 7 and 13 (with flow1 and
+    masks) at 512x384, B=64: the scene kernel against its plain version on
+    step 0's tables bit for bit (as phase 4), and the main path through
+    Generator with its throughput and peak memory; then the windowed
+    renderer at 1024x436, B=4, mode 7, through the window kernels against
+    their plain versions, bit for bit (the sign of a zero aside, as phase
+    15). Returns the scene kernel's worst difference and the window
+    kernels'."""
+    import dataclasses
+
+    import flowgen_torch
+    from flowgen_torch.compose.render import render_batch
+    from flowgen_torch.ops import scene as ps
+    from flowgen_torch.ops import window
+    from flowgen_torch.pipeline.generator import (make_atlas_packer,
+                                                  make_slab_packer)
+    from flowgen_torch.texture_io import build_texture_db, load_texture_db
+
+    t0 = time.perf_counter()
+    list_file = write_texture_files()
+    t1 = time.perf_counter()
+    cfg7 = flowgen_torch.DataGenConfig(mode=7, batch_size=64, seed=0,
+                                       texture_dbases=(list_file,))
+    db = flowgen_torch.atlas_for_config(cfg7)
+    t2 = time.perf_counter()
+    if not isinstance(db, flowgen_torch.TextureDB):
+        fail("atlas_for_config did not give a TextureDB")
+    canon = load_texture_db([list_file], height=cfg7.height,
+                            width=cfg7.width, native_fov=False)
+    t3 = time.perf_counter()
+    classes = [t % 3 for t in range(db.sizes.shape[0])]
+    same = [i for i, c in enumerate(classes) if c == 0]
+    if not np.array_equal(canon[same], db.canonical[same]):
+        fail("the native loader's canonical atlas differs from PIL's on "
+             "sources of the canonical size")
+    diff = np.abs(canon.astype(np.int16) - db.canonical.astype(np.int16))
+    print(f"TextureDB: {db.sizes.shape[0]} sources "
+          f"({', '.join(f'{n} {h}x{w}' for n, h, w in TEXDB_CLASSES)}) "
+          f"written in {t1 - t0:.1f} s, loaded with native field of view "
+          f"in {t2 - t1:.1f} s; the native loader's canonical atlas in "
+          f"{t3 - t2:.1f} s, byte-equal to the PIL resize on the "
+          f"canonical-size sources, mean |d| {float(diff.mean()):.3f} levels "
+          "over all (two resamplers)")
+    del canon, diff
+
+    worst = 0.0
+    runs = {}
+    for mode, extra in ((7, {}), (13, dict(compute_inverse_flow=True,
+                                           emit_masks=True))):
+        cfg = dataclasses.replace(cfg7, mode=mode, **extra)
+        slabs = make_slab_packer(cfg, dev)(db)
+        print(f"TextureDB mode {mode} slabs: objects "
+              f"{tuple(slabs[0].shape)}, backgrounds {tuple(slabs[1].shape)}")
+        args, opts = scene_tables(cfg, 0, 0, slabs, dev)
+        t = phase_scene_timing(f"TextureDB mode {mode}", args, opts, card)
+        ref = as_batch(ps.scene_render(*args, **opts))
+        first, res = run_main_path(cfg, db, card, label=", TextureDB")
+        g = gates({k: first[k][:4] for k in first},
+                  {k: v[:4] for k, v in ref.items()})
+        print(f"TextureDB mode {mode} main path step 0 vs the kernel on "
+              "step 0's tables (samples 0-3): " + json.dumps(g, sort_keys=True))
+        if not g["ok"] or g["max_abs_err"] != 0.0:
+            fail(f"TextureDB mode {mode}: the main path disagrees with the "
+                 "kernel's render")
+        worst = max(worst, t["max_abs_err"])
+        runs[mode] = {"scene_ms": t["ms"], "ms_per_step": res["ms_per_step"],
+                      "samples_per_s": res["samples_per_s"],
+                      "peak_gib": res["peak_gib"]}
+        del slabs, args, ref, first
+
+    cfg_s = dataclasses.replace(sintel_cfg(mode=7), texture_dbases=(list_file,))
+    cfg_s4 = dataclasses.replace(cfg_s, batch_size=4)
+    natives = [db.sources[t, :h, :w] for t, (h, w) in enumerate(db.sizes)]
+    db_s = build_texture_db(natives, height=cfg_s.height, width=cfg_s.width)
+    atlas_q = make_atlas_packer(dev)(db_s)
+    s0, scenes = windowed_samples(cfg_s, dev)
+    before = read_counts()
+    k_out = as_windowed(render_batch(scenes, atlas_q, cfg_s4, None), cfg_s4)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in read_counts().items()}
+    with window.plain_versions():
+        p_out = as_windowed(render_batch(scenes, atlas_q, cfg_s4, None),
+                            cfg_s4)
+    cmp = gates(k_out, p_out)
+    cmp["values_with_other_bits"] = {k: bits_differ(k_out[k], p_out[k])
+                                     for k in k_out}
+    print(f"TextureDB windowed mode 7 kernels vs plain (samples {s0}-"
+          f"{s0 + 3}, {cfg_s.width}x{cfg_s.height}, launches "
+          f"{json.dumps(launched)}): " + json.dumps(cmp, sort_keys=True))
+    if any(cmp["values_with_other_bits"].values()) or not launched[
+            "object_window"]:
+        fail("TextureDB windowed mode 7: the window kernels differ from "
+             "their plain versions")
+    print("TextureDB readings: " + json.dumps(runs) + f" [{card}]")
+    return worst, cmp["max_abs_err"]
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
@@ -1832,15 +2087,20 @@ def main():
     print(f"cuda {torch.version.cuda}")
     print(card)
 
-    # ---- 1: build, one nvcc per source, all at once ----
+    # ---- 1: build, one nvcc per source and g++ for the loader, at once ----
+    from flowgen_torch.texture_io import native
+
     t0 = time.time()
+    loader = native.start_build()
     _build.build_all()
+    native.finish_build(loader)
     print(f"build: {time.time() - t0:.1f} s for {len(_build.LIBRARIES)} "
-          f"libraries [{card}]")
+          f"CUDA libraries and the texture loader [{card}]")
     for lib, info in _build.BUILD_INFO.items():
         print(f"  {lib}: nvcc {info['seconds']:.1f} s")
         for ln in ptxas_summary(info["log"]):
             print(f"    {ln}")
+    print(f"  texture loader: g++ {native.BUILD_INFO['seconds']:.1f} s")
 
     stamp("build done")
     # ---- 2-4: mode 7 ----
@@ -1952,6 +2212,17 @@ def main():
         },
     ] + win_rows
     stamp("phases 12-15 (windowed) done")
+    # ---- 16: photometric augmentation ----
+    rows.append(phase_photometric(card, dev))
+    stamp("phase 16 (photometric) done")
+    # ---- 17: texture databases ----
+    scene_err, window_err = phase_texture_db(card, dev)
+    by_name = {r["name"]: r for r in rows}
+    by_name["scene_render"]["max_abs_err"] = max(
+        by_name["scene_render"]["max_abs_err"], scene_err)
+    by_name["object_window"]["max_abs_err"] = max(
+        by_name["object_window"]["max_abs_err"], window_err)
+    stamp("phase 17 (TextureDB) done")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

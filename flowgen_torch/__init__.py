@@ -14,9 +14,10 @@ kernel's displacement warps (``csrc/warp.cuh``); and modes 11 and 13
 (quadrant slabs, 2x2 frame-1 texture sub-windows), the inverse flow
 (``flow1``) and the occlusion and motion-boundary masks; and the windowed
 renderer (``compose/render.py``, CUDA kernels in ``csrc/window.cu``) for
-frames that are not multiples of (8, 128), such as MPI-Sintel's 1024x436.
-Photometric augmentation and the TextureDB path are not ported yet
-(ROADMAP.md, port queue).
+frames that are not multiples of (8, 128), such as MPI-Sintel's 1024x436;
+and texture databases (``TextureDB``, the native loader, each source's own
+field of view) and photometric augmentation (CUDA kernel in
+``csrc/photometric.cu``).
 """
 
 from .config import (
@@ -28,7 +29,13 @@ from .config import (
     disparity_mode,
     register_mode,
 )
-from .texture_io import atlas_for_config, procedural_atlas
+from .texture_io import (
+    TextureDB,
+    atlas_for_config,
+    build_texture_db,
+    load_texture_db,
+    procedural_atlas,
+)
 
 __all__ = [
     "DEFAULT_HEIGHT",
@@ -38,6 +45,9 @@ __all__ = [
     "ModeSpec",
     "disparity_mode",
     "register_mode",
+    "TextureDB",
     "atlas_for_config",
+    "build_texture_db",
+    "load_texture_db",
     "procedural_atlas",
 ]

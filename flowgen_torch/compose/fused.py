@@ -353,7 +353,9 @@ def _bg_meta_payload(scene: Scene, cfg: DataGenConfig, src_h, src_w):
     """Per-sample background metadata (B, BGM_SIZE) f32: the raw output ->
     source affines of both frames, the source reflect periods, the
     background pixel motion, the forward-field sampling affine and the
-    inverse pixel motion."""
+    inverse pixel motion. ``src_h`` / ``src_w``: the background sources'
+    size, two numbers, or each sample's source's native size, (B,) integer
+    tensors (the TextureDB path)."""
     from ..ops import texture as tex_mod
 
     H, W = cfg.height, cfg.width
@@ -377,7 +379,10 @@ def _bg_meta_payload(scene: Scene, cfg: DataGenConfig, src_h, src_w):
     faff = torch.cat([flin, ftr[..., None]], dim=-1)
     ipix = affine.invert(pixmot)
     zeros2 = torch.zeros((B, 2), device=dev)
-    src = torch.tensor([float(src_w), float(src_h)], device=dev).expand(B, 2)
+    if torch.is_tensor(src_h):
+        src = torch.stack([src_w, src_h], dim=-1).to(torch.float32)
+    else:
+        src = torch.tensor([float(src_w), float(src_h)], device=dev).expand(B, 2)
     return torch.cat(
         [
             t0.reshape(B, 6), t1.reshape(B, 6), src, zeros2,
@@ -392,19 +397,10 @@ def _bg_meta_payload(scene: Scene, cfg: DataGenConfig, src_h, src_w):
 def check_slice(cfg: DataGenConfig):
     """Refuse configurations outside the ported slice, naming the ROADMAP.md
     port-queue item that will bring them."""
-    spec = cfg.mode_spec
-    todo = []
-    if spec.warp_p > 0.0 and cfg.warp_bank_impl != "pallas":
-        todo.append("warp_bank_impl='xla' (mode 9's quad-gather bank): port "
-                    "queue item 3")
-    if cfg.photometric_augment:
-        todo.append("photometric_augment: port queue item 1")
-    if cfg.texture_dbases:
-        todo.append("texture_dbases / TextureDB: port queue item 2")
-    if todo:
+    if cfg.mode_spec.warp_p > 0.0 and cfg.warp_bank_impl != "pallas":
         raise NotImplementedError(
-            "not ported yet (see ROADMAP.md): " + "; ".join(todo)
-        )
+            "not ported yet (see ROADMAP.md): warp_bank_impl='xla' (mode 9's "
+            "quad-gather bank): port queue item 3")
 
 
 def check_fused(cfg: DataGenConfig):
@@ -419,15 +415,30 @@ def check_fused(cfg: DataGenConfig):
             "the windowed renderer (render_impl='windowed')")
 
 
+def _source_sizes(bg_tex, src_hw, tex_sizes):
+    """Each sample's background source size (src_h, src_w): the two numbers
+    ``src_hw``, or (B,) tensors gathered from the per-source native sizes
+    ``tex_sizes`` (T, 2) (h, w) when given."""
+    if tex_sizes is None:
+        return src_hw[0], src_hw[1]
+    sz = torch.as_tensor(tex_sizes, device=bg_tex.device)[bg_tex.long()]
+    return sz[:, 0], sz[:, 1]
+
+
 def scene_tables(scenes: Scene, cfg: DataGenConfig, slabs, bgslabs, src_hw,
-                 warp_aux=None):
+                 tex_sizes=None, warp_aux=None):
     """A batch's scene-kernel inputs: ``(args, options)``, with ``args`` in
     :func:`ops.scene.scene_render`'s order and ``options`` its keyword
     arguments (``spec_key``, ``use_aa``, ``inverse_flow``, ``emit_masks``).
-    ``src_hw``: the background sources' (height, width). Nonrigid modes pass
-    ``warp_aux``, the ``compose/render.py:WarpAux`` of
-    ``warpfields/generator.py:make_bank_and_aux``. Quadrant modes take
-    ``slabs`` with the rot90 copies (``ops/scene.py:prepare_slabs``)."""
+    ``src_hw``: the background sources' (height, width), the bg slabs'
+    unpadded size. A TextureDB's sources keep their native sizes,
+    ``tex_sizes`` (T, 2) (h, w) per source; each sample's background then
+    gets its own reflect periods and crop geometry. ``slabs`` to
+    ``tex_sizes`` are what ``pipeline/generator.py:make_slab_packer``
+    returns. Nonrigid modes pass ``warp_aux``, the
+    ``compose/render.py:WarpAux`` of ``warpfields/generator.py:
+    make_bank_and_aux``. Quadrant modes take ``slabs`` with the rot90
+    copies (``ops/scene.py:prepare_slabs``)."""
     H, W = cfg.height, cfg.width
     quadrant = ps.quadrant_needed(cfg.mode_spec)
     n_tex = slabs.shape[0] // 2 if quadrant else slabs.shape[0]
@@ -439,7 +450,8 @@ def scene_tables(scenes: Scene, cfg: DataGenConfig, slabs, bgslabs, src_hw,
         [(bg.tex_id % bgslabs.shape[0]).to(torch.int32),
          bg.warp.to(torch.int32), bg.warp_slot.to(torch.int32)], dim=1,
     )
-    bgm = _bg_meta_payload(scenes, cfg, src_hw[0], src_hw[1])
+    bgm = _bg_meta_payload(scenes, cfg,
+                           *_source_sizes(bg_meta[:, 0], src_hw, tex_sizes))
 
     if _validate_enabled(cfg):
         viol = int(envelope_violations(scenes, cfg, bgm=bgm))
@@ -466,15 +478,16 @@ def scene_tables(scenes: Scene, cfg: DataGenConfig, slabs, bgslabs, src_hw,
 
 def render_batch_fused(scenes: Scene, slabs, bgslabs, src_hw,
                        cfg: DataGenConfig, bg_only: bool = False,
-                       warp_aux=None):
+                       warp_aux=None, tex_sizes=None):
     """Fused render of a batch: (image0, image1, flow0[, flow1][, occlusion,
     motion_boundary]) with images (B,H,W,3) float32 in [0, 255], flows
     (B,H,W,2) and masks (B,H,W) bool, ``flow1`` with
     ``cfg.compute_inverse_flow`` and the masks with ``cfg.emit_masks``.
-    ``src_hw``: the background sources' (height, width). Nonrigid modes pass
-    ``warp_aux`` (a ``compose/render.py:WarpAux``)."""
+    ``src_hw`` and ``tex_sizes`` as in :func:`scene_tables`. Nonrigid
+    modes pass ``warp_aux`` (a ``compose/render.py:WarpAux``)."""
     check_fused(cfg)
-    args, options = scene_tables(scenes, cfg, slabs, bgslabs, src_hw, warp_aux)
+    args, options = scene_tables(scenes, cfg, slabs, bgslabs, src_hw,
+                                 tex_sizes, warp_aux)
     frames, flow, ids = ps.scene_render(*args, bg_only=bg_only, **options)
 
     def unpack(v):

@@ -4,9 +4,9 @@
 ``jax.tree.map(np.asarray, scene)`` (or any object with the same field
 names) into the port's ``Scene``; ``slabs_from_numpy`` does the same for
 packed texture slabs, ``bank_from_numpy`` and ``aux_from_numpy`` for the
-mode-9 warp bank and its warp planes. Tests use them to feed both renderers
-the same scene and bank, separately from RNG parity. Nothing here imports
-JAX.
+mode-9 warp bank and its warp planes, ``texture_db_from_numpy`` for a
+texture database. Tests use them to feed both renderers the same scene,
+bank and textures, separately from RNG parity. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -71,3 +71,17 @@ def aux_from_numpy(aux, device="cpu"):
 
     obj_aux, bg_aux = (_f32_tensor(a, device) for a in aux)
     return WarpAux(obj_aux, bg_aux, bg_band_starts(bg_aux))
+
+
+def texture_db_from_numpy(db):
+    """The JAX package's ``TextureDB`` (numpy ``canonical``, ``sources``,
+    ``sizes``, ``obj_tex``; any object with those fields) -> the port's
+    ``texture_io.TextureDB``, its arrays copied as uint8 (sizes int32)."""
+    from .texture_io import TextureDB
+
+    return TextureDB(
+        canonical=np.array(db.canonical, np.uint8),
+        sources=np.array(db.sources, np.uint8),
+        sizes=np.array(db.sizes, np.int32),
+        obj_tex=np.array(db.obj_tex, np.uint8),
+    )

@@ -33,6 +33,7 @@ LIBRARIES = {
     "flowgen_fields": ("fields.cu", ()),
     "flowgen_window": ("window.cu", ("coverage.cuh",)),
     "flowgen_resample": ("resample.cu", ("resample.cuh", "coverage.cuh")),
+    "flowgen_photometric": ("photometric.cu", ()),
 }
 
 _loaded = {}
@@ -164,5 +165,15 @@ def load_resample_library():
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] + [ctypes.c_float] * 6 + [
             ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def load_photometric_library():
+    lib = _load("flowgen_photometric")
+    fn = lib.flowgen_photometric
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [
+            ctypes.c_float] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib

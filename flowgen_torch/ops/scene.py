@@ -157,6 +157,38 @@ def prepare_bg_slabs(atlas):
     return torch.stack([_slab_of(im, hs, ws) for im in atlas])
 
 
+def prepare_obj_slabs(obj_tex, quadrant: bool = False):
+    """(T, H, W, 3) object textures (``TextureDB.obj_tex``: each source's
+    centre crop, or its whole-image resize when it is small) -> packed
+    reflect-padded slabs in the layout of :func:`prepare_slabs`, with the
+    rot90 copies at [T:2T] when ``quadrant``."""
+    height, width = obj_tex.shape[1], obj_tex.shape[2]
+    if quadrant:
+        return _stack_quadrant(obj_tex, height, width)
+    hs, ws = slab_shape(height, width)
+    return torch.stack([_slab_of(im, hs, ws) for im in obj_tex])
+
+
+def prepare_bg_slabs_db(sources, sizes):
+    """(T, maxH, maxW, 3) zero-padded native sources and their (T, 2)
+    native (h, w) -> (T, SHb, SWb) int32 packed background slabs with
+    PER-SOURCE reflect periods: slab[t, i, j] = src[t, reflect(i - M, h_t),
+    reflect(j - M, w_t)] over the whole slab, so any position in it holds
+    the source's AGG reflect extension at its native size."""
+    T = sources.shape[0]
+    hs, ws = slab_shape(sources.shape[1], sources.shape[2])
+    dev = sources.device
+    packed = resamp.pack_rgb_i32(sources)
+    ys = torch.arange(hs, device=dev) - SLAB_MARGIN
+    xs = torch.arange(ws, device=dev) - SLAB_MARGIN
+    out = torch.empty((T, hs, ws), dtype=torch.int32, device=dev)
+    for t, (h, w) in enumerate(torch.as_tensor(sizes).tolist()):
+        yi = resamp._reflect_indices(ys, h)
+        xi = resamp._reflect_indices(xs, w)
+        out[t] = packed[t][yi][:, xi]
+    return out
+
+
 def bg_envelope(spec):
     """Static motion envelope (max rotation, max inverse scale) of the
     background texture chain."""

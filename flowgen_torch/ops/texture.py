@@ -168,17 +168,27 @@ def randomized_crop_transform_native(src_h, src_w, out_h, out_w, angle_deg,
                                      zoom, shift_x, shift_y):
     """Per-source crop transform with the reference's small-source fallback
     (cpp:96-108): sources smaller than the request shift, rotate and resize
-    the whole image (zoom ignored). Only Python-number source sizes are
-    ported (the procedural and canonical atlases)."""
+    the whole image (zoom ignored). ``src_h`` / ``src_w`` are Python numbers
+    (an atlas) or per-sample integer tensors (a TextureDB's native sizes);
+    tensors select between the two chains elementwise, in float32 as the
+    JAX package's traced sizes do."""
+    per_sample = torch.is_tensor(src_h) or torch.is_tensor(src_w)
+    if per_sample:
+        src_h = torch.as_tensor(src_h, device=zoom.device).to(torch.float32)
+        src_w = torch.as_tensor(src_w, device=zoom.device).to(torch.float32)
     crop_t = randomized_crop_transform(
         src_h, src_w, out_h, out_w, angle_deg, zoom, shift_x, shift_y
     )
-    if src_w >= out_w and src_h >= out_h:
+    if not per_sample and src_w >= out_w and src_h >= out_h:
         return crop_t
     zoom = zoom.to(torch.float32)
     z = torch.zeros_like(zoom)
-    sx = f32(src_w / out_w)
-    sy = f32(src_h / out_h)
+    if per_sample:
+        sx = div(src_w, float(out_w))
+        sy = div(src_h, float(out_h))
+    else:
+        sx = f32(src_w / out_w)
+        sy = f32(src_h / out_h)
     scale = torch.stack(
         [torch.stack([sx + z, z, z], -1), torch.stack([z, sy + z, z], -1)], -2
     )
@@ -187,4 +197,8 @@ def randomized_crop_transform_native(src_h, src_w, out_h, out_w, angle_deg,
         affine.rotation(ang), src_w / 2.0, src_h / 2.0
     )
     unshift = affine.translation(-shift_x, -shift_y)
-    return affine.chain(scale, rot, unshift)
+    resize_t = affine.chain(scale, rot, unshift)
+    if not per_sample:
+        return resize_t
+    big = ((src_w >= out_w) & (src_h >= out_h))[..., None, None]
+    return torch.where(big, crop_t, resize_t)

@@ -9,6 +9,11 @@ renderer (``compose/render.py``), as :func:`use_fused_path` decides.
 PyTorch enqueues device work asynchronously, so the runtime keeps
 ``prefetch`` steps in flight on the current CUDA stream.
 
+The texture bank is a (T, 2H, 2W, 3) atlas or a ``texture_io.TextureDB``,
+whose sources keep their native sizes on the scene kernel's path. With
+``photometric_augment`` the frames get FlowNet's photometric jitter
+(``ops/photometric.py``) after either renderer.
+
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card and without that request they raise.
 """
@@ -26,14 +31,19 @@ from .. import texture_io
 from ..compose.fused import check_slice, masks_from_ids, render_batch_fused
 from ..compose.render import _pallas_enabled, prepare_atlas, render_batch
 from ..config import DataGenConfig
+from ..ops import photometric
 from ..ops.scene import (
     fused_eligible,
     prepare_bg_slabs,
+    prepare_bg_slabs_db,
+    prepare_obj_slabs,
     prepare_slabs,
     quadrant_needed,
+    slab_shape,
 )
 from ..params.sampler import sample_scene_batch
 from ..random.streams import root_key
+from ..texture_io import TextureDB
 from ..warpfields import generator as warpgen
 
 
@@ -102,10 +112,13 @@ def use_fused_path(cfg: DataGenConfig, device) -> bool:
 def make_atlas_packer(device):
     """Cache of the quad-packed atlas (``compose/render.py:prepare_atlas``)
     that the windowed renderer samples, packed once per distinct atlas
-    object; an atlas already packed (last dim 12) passes through."""
+    object; an atlas already packed (last dim 12) passes through. A
+    TextureDB gives its ``canonical`` array."""
     cache = {}
 
     def packed(atlas):
+        if isinstance(atlas, TextureDB):
+            atlas = atlas.canonical
         if torch.is_tensor(atlas) and atlas.shape[-1] == 12:
             return atlas.to(device)
         if cache.get("id") != id(atlas):
@@ -116,23 +129,72 @@ def make_atlas_packer(device):
     return packed
 
 
+def db_slab_bytes(db: TextureDB) -> int:
+    """Device bytes that packing a TextureDB's background slabs holds at its
+    peak: every slab is padded to the largest source (int32 texels), and the
+    zero-padded sources are on the card as uint8 and as packed int32 while
+    the slabs are built."""
+    T, max_h, max_w = (int(n) for n in db.sources.shape[:3])
+    hs, ws = slab_shape(max_h, max_w)
+    return T * hs * ws * 4 + T * max_h * max_w * (3 + 4)
+
+
+def _check_db_fits(db: TextureDB, device):
+    """Raise before packing a TextureDB whose background slabs cannot fit in
+    the card's free memory (one large source pads every slab to its size)."""
+    if device.type != "cuda":
+        return
+    free = (torch.cuda.mem_get_info(device)[0]
+            + torch.cuda.memory_reserved(device)
+            - torch.cuda.memory_allocated(device))
+    need = db_slab_bytes(db)
+    if need > free:
+        T, max_h, max_w = (int(n) for n in db.sources.shape[:3])
+        raise MemoryError(
+            f"TextureDB background slabs need {need / 2**30:.2f} GiB on "
+            f"{device}, {free / 2**30:.2f} GiB free: each of the {T} slabs is "
+            f"padded to the largest source, {max_h}x{max_w}; shrink the "
+            f"largest sources or split the database")
+
+
 def make_slab_packer(cfg: DataGenConfig, device):
-    """Cache of the packed texture slabs (object crops, with their rot90
-    copies in the quadrant modes 11 and 13, and full background sources),
-    built once per distinct atlas object."""
+    """Cache of the scene kernel's packed texture slabs, built once per
+    distinct atlas object: ``(obj_slabs, bg_slabs, src_hw, tex_sizes)``, the
+    arguments of ``compose/fused.py:scene_tables`` after ``cfg``. For an
+    atlas: its frame-sized centre crops (with their rot90 copies in the
+    quadrant modes 11 and 13), its full sources, their (height, width) and
+    no per-source sizes. For a TextureDB: its ``obj_tex``, its native
+    sources with per-source reflect periods, the padded sources' (height,
+    width) and their native sizes, a (T, 2) int32 tensor (h, w). A
+    TextureDB whose slabs cannot fit in the card's free memory raises
+    ``MemoryError`` before anything is allocated."""
     quadrant = quadrant_needed(cfg.mode_spec)
     cache = {}
 
     def slabs(atlas):
-        if cache.get("id") != id(atlas):
+        if cache.get("id") == id(atlas):
+            return cache["val"]
+        if isinstance(atlas, TextureDB):
+            _check_db_fits(atlas, device)
+            sizes = torch.as_tensor(np.asarray(atlas.sizes, np.int32),
+                                    device=device)
+            val = (
+                prepare_obj_slabs(_as_u8(atlas.obj_tex).to(device),
+                                  quadrant=quadrant),
+                prepare_bg_slabs_db(_as_u8(atlas.sources).to(device), sizes),
+                tuple(int(n) for n in atlas.sources.shape[1:3]),
+                sizes,
+            )
+        else:
             a = _as_u8(atlas).to(device)
-            cache["id"] = id(atlas)
-            cache["val"] = (
+            val = (
                 prepare_slabs(a, cfg.height, cfg.width, quadrant=quadrant),
                 prepare_bg_slabs(a),
                 (a.shape[1], a.shape[2]),
+                None,
             )
-        return cache["val"]
+        cache["id"], cache["val"] = id(atlas), val
+        return val
 
     return slabs
 
@@ -141,9 +203,10 @@ def generate_batch(root, step, atlas, cfg: DataGenConfig, base_index=None,
                    slabs=None, device=None, warp_aux=None, warp_bank=None):
     """One batch: samples ``cfg.batch_size`` scenes at global indices
     ``base_index .. base_index+B-1`` (default ``step*B``) and renders them.
-    ``atlas`` is a (T, 2H, 2W, 3) texture bank (the windowed renderer also
-    takes it quad-packed, (T, 2H, 2W, 12)); ``slabs`` optionally the scene
-    kernel's pre-packed ``(obj_slabs, bg_slabs, (src_h, src_w))``. ``root``
+    ``atlas`` is a (T, 2H, 2W, 3) texture bank or a ``TextureDB`` (the
+    windowed renderer also takes it quad-packed, (T, 2H, 2W, 12)); ``slabs``
+    optionally the scene kernel's pre-packed slabs
+    (:func:`make_slab_packer`). ``root``
     is a key from ``random.streams.root_key`` or an int seed. In mode 9 the
     step's bank epoch may be passed (``make_generate_fn`` caches it per
     epoch): the scene kernel's warp planes (``warp_aux``, the ``WarpAux`` of
@@ -171,23 +234,27 @@ def generate_batch(root, step, atlas, cfg: DataGenConfig, base_index=None,
             ids = rendered.pop()
             f0 = rendered[2]
             rendered += list(masks_from_ids(ids, f0[..., 0], f0[..., 1]))
-        return _split_and_adapt(rendered, cfg)
+        return _split_and_adapt(rendered, cfg, root, indices)
     if slabs is None:
         slabs = make_slab_packer(cfg, dev)(atlas)
-    obj_slabs, bg_slabs, src_hw = slabs
+    obj_slabs, bg_slabs, src_hw, tex_sizes = slabs
     if warp and warp_aux is None:
         _, warp_aux = warpgen.make_bank_and_aux(root, step, cfg)
     scenes = sample_scene_batch(root, indices, cfg, n_warp_slots=n_slots)
     return _split_and_adapt(
         render_batch_fused(scenes, obj_slabs, bg_slabs, src_hw, cfg,
-                           warp_aux=warp_aux), cfg)
+                           warp_aux=warp_aux, tex_sizes=tex_sizes),
+        cfg, root, indices)
 
 
-def _split_and_adapt(rendered, cfg: DataGenConfig):
+def _split_and_adapt(rendered, cfg: DataGenConfig, root, indices):
     """A renderer's (image0, image1, flow0[, flow1][, occlusion,
-    motion_boundary]) through :func:`_adapt_output`."""
+    motion_boundary]), photometrically jittered when the configuration
+    asks for it, through :func:`_adapt_output`."""
     rendered = list(rendered)
     i0, i1, f0 = rendered[:3]
+    if cfg.photometric_augment:
+        i0, i1 = photometric.augment_batch(root, indices, i0, i1)
     rest = rendered[3:]
     f1 = rest.pop(0) if cfg.compute_inverse_flow else None
     masks = tuple(rest) if cfg.emit_masks else None

@@ -135,15 +135,18 @@ def root_key(seed: int, device="cpu") -> torch.Tensor:
 def sample_key(root: torch.Tensor, sample_index) -> torch.Tensor:
     """``jax.random.fold_in(root, sample_index)``: threefry of the counter
     pair (0, index) under the root key. ``sample_index`` may be a tensor of
-    indices; returns keys of shape index.shape + (2,)."""
+    indices; returns keys of shape index.shape + (2,). A batch of keys
+    (..., 2) with one index (or as many) folds in elementwise."""
     idx = torch.as_tensor(sample_index, device=root.device).to(torch.int64)
     idx = idx & _M32
-    o1, o2 = threefry2x32(root[0], root[1], torch.zeros_like(idx), idx)
+    o1, o2 = threefry2x32(root[..., 0], root[..., 1], torch.zeros_like(idx),
+                          idx)
     return torch.stack([o1, o2], dim=-1)
 
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
-    """``jax.random.fold_in(key, data)`` for one key (2,) and a Python int."""
+    """``jax.random.fold_in(key, data)`` for a key (2,), or a batch of keys
+    (..., 2), and a Python int."""
     return sample_key(key, int(data))
 
 
@@ -159,19 +162,24 @@ def stream_key(key: torch.Tensor, stream: Stream, *indices) -> torch.Tensor:
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split(key, num)``: key i is threefry(key, (0, i))
     (the fold-like split of ``jax_threefry_partitionable=True``). Returns
-    (num, 2)."""
+    (num, 2), or (..., num, 2) for a batch of keys (..., 2)."""
     cnt = torch.arange(num, dtype=torch.int64, device=key.device)
-    o1, o2 = threefry2x32(key[0], key[1], torch.zeros_like(cnt), cnt)
+    o1, o2 = threefry2x32(key[..., 0:1], key[..., 1:2], torch.zeros_like(cnt),
+                          cnt)
     return torch.stack([o1, o2], dim=-1)
 
 
 def _bits(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.bits(key, shape, uint32)`` for keys (..., 2): the
+    keys' leading shape, then ``shape``; value i of the flat ``shape`` is
+    word i of the key's stream."""
     n = int(np.prod(shape)) if shape else 1
-    return random_bits(key, n).reshape(tuple(shape))
+    return random_bits(key, n).reshape(key.shape[:-1] + tuple(shape))
 
 
 def uniform(key: torch.Tensor, a: float, b: float, shape=()) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, minval=a, maxval=b)`` in float32:
+    """``jax.random.uniform(key, shape, minval=a, maxval=b)`` in float32 (a
+    batch of keys (..., 2) draws each key's ``shape``):
     23 random bits as the mantissa of a float in [1, 2), minus 1, then
     ``u * (b - a) + a``, held at ``a`` from below. XLA:CPU contracts that
     scale-and-shift into one fused multiply-add (one rounding), so it is
@@ -183,6 +191,19 @@ def uniform(key: torch.Tensor, a: float, b: float, shape=()) -> torch.Tensor:
     u = mant.view(torch.float32) - 1.0
     v = (u.to(torch.float64) * float(span) + float(lo)).to(torch.float32)
     return torch.clamp(v, min=float(lo))
+
+
+NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+SQRT2 = _fp.f32(np.sqrt(2.0))
+
+
+def normal(key: torch.Tensor, shape=()) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` in float32, bit for bit: ``sqrt(2)
+    erf_inv(u)`` with ``u`` uniform on [nextafter(-1, 0), 1) (XLA:CPU's
+    ``erf_inv``, ``_fp.erf_inv``). ``key`` may be a batch of keys (..., 2);
+    the result has their leading shape, then ``shape``. Not the bits-table
+    Box-Muller draw of :meth:`ScopeDraws.normal`."""
+    return _fp.erf_inv(uniform(key, NORMAL_LO, 1.0, shape)) * SQRT2
 
 
 def uniform_int(key: torch.Tensor, a: int, b: int, shape=()) -> torch.Tensor:

@@ -116,9 +116,9 @@ def test_generator_without_device_raises_without_card():
 
 @pytest.mark.parametrize("kw", [
     dict(mode=9, warp_bank_impl="xla"),
-    dict(mode=7, photometric_augment=True),
-    dict(mode=7, render_impl="windowed", photometric_augment=True),
-    dict(mode=7, texture_dbases=("list.txt",)),
+    dict(mode=9, warp_bank_impl="xla", photometric_augment=True),
+    dict(mode=9, warp_bank_impl="xla", render_impl="windowed"),
+    dict(mode=9, warp_bank_impl="xla", texture_dbases=("list.txt",)),
 ])
 def test_out_of_slice_configs_raise(kw):
     from flowgen_torch.pipeline.generator import generate_batch
@@ -202,9 +202,17 @@ def test_windowed_configs_render(kw):
             assert bool(torch.isfinite(v).all())
 
 
-def test_texture_db_atlas_raises():
-    cfg = flowgen_torch.DataGenConfig(mode=7, texture_dbases=("x.txt",))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_texture_db_atlas_raises(tmp_path):
+    """A list file that is missing, or that names no image, raises, as the
+    reference's texture collection does at start-up."""
+    cfg = flowgen_torch.DataGenConfig(
+        mode=7, texture_dbases=(str(tmp_path / "missing.txt"),))
+    with pytest.raises(FileNotFoundError):
+        flowgen_torch.atlas_for_config(cfg)
+    empty = tmp_path / "empty.txt"
+    empty.write_text("\n\n")
+    cfg = flowgen_torch.DataGenConfig(mode=7, texture_dbases=(str(empty),))
+    with pytest.raises(ValueError, match="No texture paths"):
         flowgen_torch.atlas_for_config(cfg)
 
 
@@ -214,5 +222,7 @@ def test_all_modules_listed():
     for want in ("flowgen_torch.config", "flowgen_torch.random.streams",
                  "flowgen_torch.params.sampler", "flowgen_torch.ops.scene",
                  "flowgen_torch.compose.fused",
-                 "flowgen_torch.pipeline.generator", "flowgen_torch.interop"):
+                 "flowgen_torch.pipeline.generator", "flowgen_torch.interop",
+                 "flowgen_torch.ops.photometric",
+                 "flowgen_torch.texture_io.native"):
         assert want in names

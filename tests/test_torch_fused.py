@@ -93,7 +93,7 @@ def test_scene_tables_match(ref):
 def test_slabs_match(ref):
     _, tc = _cfgs()
     atlas = ref["atlas"]
-    obj, bg, src = make_slab_packer(tc, "cpu")(atlas)
+    obj, bg, src, _ = make_slab_packer(tc, "cpu")(atlas)
     assert src == (2 * H, 2 * W)
     np.testing.assert_array_equal(
         obj.numpy(), np.asarray(jps.prepare_slabs(jnp.asarray(atlas), H, W)))
@@ -107,7 +107,7 @@ def test_slabs_match(ref):
 def test_render_carried_scene_meets_gates(ref):
     _, tc = _cfgs()
     ts = scene_from_numpy(ref["scenes"])
-    obj, bg, src = make_slab_packer(tc, "cpu")(ref["atlas"])
+    obj, bg, src, _ = make_slab_packer(tc, "cpu")(ref["atlas"])
     i0, i1, f0 = tf.render_batch_fused(ts, obj, bg, src, tc)
     out = {k: v.numpy() for k, v in _adapt_output(i0, i1, f0, None, tc).items()}
     assert out["image0"].shape == (B, H, W, 3)

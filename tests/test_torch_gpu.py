@@ -31,7 +31,7 @@ def _need_card():
 
 def _tables(cfg, seed, dev):
     atlas = flowgen_torch.procedural_atlas(4, height=cfg.height, width=cfg.width)
-    obj, bg, src = make_slab_packer(cfg, dev)(atlas)
+    obj, bg, src, _ = make_slab_packer(cfg, dev)(atlas)
     scenes = sample_scene_batch(root_key(seed, dev),
                                 torch.arange(cfg.batch_size, device=dev), cfg)
     args, opts = fused.scene_tables(scenes, cfg, obj, bg, src)
@@ -205,7 +205,7 @@ def _mode9_tables(cfg, dev):
     from flowgen_torch.warpfields.generator import bank_size, make_bank_and_aux
 
     atlas = flowgen_torch.procedural_atlas(4, height=cfg.height, width=cfg.width)
-    obj, bg, src = make_slab_packer(cfg, dev)(atlas)
+    obj, bg, src, _ = make_slab_packer(cfg, dev)(atlas)
     for seed in range(64):
         scenes = sample_scene_batch(
             root_key(seed, dev), torch.arange(cfg.batch_size, device=dev), cfg,
@@ -216,7 +216,7 @@ def _mode9_tables(cfg, dev):
     else:
         raise AssertionError("no seed with a deforming object and background")
     _, aux = make_bank_and_aux(root_key(0, dev), 0, cfg)
-    args, opts = fused.scene_tables(scenes, cfg, obj, bg, src, aux)
+    args, opts = fused.scene_tables(scenes, cfg, obj, bg, src, warp_aux=aux)
     return args, opts
 
 
@@ -515,3 +515,83 @@ def test_object_window_kernel_matches_plain(sampled, use_aa, emit_flow):
                            (p + 0.0).view(torch.int32))
     assert not torch.equal(pf.cpu(), fr)
     assert torch.equal(pfl.cpu(), fl) != emit_flow
+
+
+@pytest.mark.parametrize("batch,height,width", [(3, 96, 128), (2, 384, 512),
+                                                (1, 37, 53)])
+def test_photometric_kernel_matches_plain(batch, height, width):
+    """The photometric kernel equals its plain version bit for bit, out of
+    place, at frame sizes that do and do not fill its blocks."""
+    from flowgen_torch.ops import photometric
+
+    _need_card()
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(batch)
+    a, b = (torch.randint(0, 256, (batch, height, width, 3), generator=g)
+            .float().to(dev) for _ in range(2))
+    root = root_key(11, dev)
+    idx = torch.arange(5, 5 + batch, device=dev)
+    before = photometric.augment_batch.launches
+    k0, k1 = photometric.augment_batch(root, idx, a, b)
+    torch.cuda.synchronize()
+    assert photometric.augment_batch.launches == before + 1
+    p0, p1 = photometric.augment_batch_plain(root, idx, a, b)
+    assert torch.equal(k0.view(torch.int32), p0.view(torch.int32))
+    assert torch.equal(k1.view(torch.int32), p1.view(torch.int32))
+    assert not torch.equal(k0, a)
+
+
+def _db(height, width, seed=0):
+    from flowgen_torch.texture_io import build_texture_db
+
+    rng = np.random.default_rng(seed)
+
+    def tex(h, w):
+        base = rng.integers(0, 255, (h // 8 + 1, w // 8 + 1, 3), np.uint8)
+        return np.kron(base, np.ones((8, 8, 1), np.uint8))[:h, :w]
+
+    return build_texture_db(
+        [tex(2 * height, 2 * width), tex(height // 2 + 3, width // 2 + 5),
+         tex(3 * height + 17, 3 * width + 40)], height=height, width=width)
+
+
+@pytest.mark.parametrize("mode", [7, 13])
+def test_texture_db_scene_kernel_matches_plain(mode):
+    """Background slabs of native sources (wider than 2W, per-source reflect
+    periods smaller than the slab): the scene kernel against its plain
+    version, bit for bit."""
+    _need_card()
+    dev = torch.device("cuda")
+    cfg = flowgen_torch.DataGenConfig(mode=mode, batch_size=6, width=256,
+                                      height=192, compute_inverse_flow=True,
+                                      emit_masks=True)
+    slabs = make_slab_packer(cfg, dev)(_db(cfg.height, cfg.width))
+    scenes = sample_scene_batch(root_key(5, dev),
+                                torch.arange(cfg.batch_size, device=dev), cfg)
+    args, opts = fused.scene_tables(scenes, cfg, *slabs)
+    kf, kl, ki = ps.scene_render(*args, **opts)
+    torch.cuda.synchronize()
+    pf, pl, pi = ps.scene_render_plain(*args, **opts)
+    assert torch.equal(kf, pf) and torch.equal(ki, pi)
+    assert torch.equal((kl + 0.0).view(torch.int32), (pl + 0.0).view(torch.int32))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(mode=7, photometric_augment=True),
+    dict(mode=13, photometric_augment=True, render_impl="windowed"),
+])
+def test_generate_batch_texture_db_cuda_matches_cpu(kw):
+    """A TextureDB, the photometric stage on, on the card and on the CPU:
+    equal frames within a level (the windowed renderer's composed branch
+    and the CPU's own float order), equal flow within the gates."""
+    _need_card()
+    cfg = flowgen_torch.DataGenConfig(batch_size=2, width=128, height=96,
+                                      **kw)
+    db = _db(cfg.height, cfg.width, seed=1)
+    a = generate_batch(3, 1, db, cfg, device="cuda")
+    b = generate_batch(3, 1, db, cfg, device="cpu")
+    for k in ("image0", "image1"):
+        d = (a[k].cpu() - b[k]).abs()
+        assert (d >= 1).float().mean().item() < 0.01
+    d = (a["flow0"].cpu() - b["flow0"]).abs()
+    assert d.flatten().median().item() < 1e-4

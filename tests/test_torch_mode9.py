@@ -134,7 +134,7 @@ def test_scene_tables_match(ref):
 def test_render_carried_scene_and_bank_meets_gates(ref):
     _, tc = _cfgs()
     ts = scene_from_numpy(ref["scenes"])
-    obj, bg, src = make_slab_packer(tc, "cpu")(ref["atlas"])
+    obj, bg, src, _ = make_slab_packer(tc, "cpu")(ref["atlas"])
     aux = aux_from_numpy(ref["aux"])
     i0, i1, f0 = tf.render_batch_fused(ts, obj, bg, src, tc, warp_aux=aux)
     out = {k: v.numpy() for k, v in _adapt_output(i0, i1, f0, None, tc).items()}
