@@ -105,6 +105,27 @@ Phases (any failure exits non-zero before the final line):
      mode 7, from the database's canonical array, through the window
      kernels against their plain versions, bit for bit (the sign of a zero
      aside);
+ 18. mode 9 with the "xla" bank stream (quad-gather doublings and the
+     gather solve, plain PyTorch): the bank and warp planes of one epoch at
+     128x96 on the card against the same function on the CPU (bank gate);
+     at 512x384 the scene kernel on the stream's warp planes against its
+     plain version on samples 0-3 of step 0 (inverse flow and ids), bit for
+     bit; the main path through Generator (B=64, 2 warm-up and 5 timed
+     steps) beside phase 7's, with no bank kernel launched; the bank
+     producer's ms per epoch at 1536^2 in both streams;
+ 19. the windowed renderer at 1024x436, B=4, mode 9 with the "xla" stream
+     (3072^2 fields), through the window kernels against their plain
+     versions, bit for bit (the sign of a zero aside);
+ 20. the public API: the DataLoader over torch_iterable_dataset and
+     FlowStepDataSource against Generator's steps, make_mixed_generate_fn
+     over modes 7 and 9 against the numpy draw and its ingredients' own
+     batches, one step of examples/train.prototxt (all bit for bit); then
+     FlowNetS (width 32) trained for 10 fused generate-and-train steps on
+     mode 7 with photometric augmentation at B=64 (convolutions in TF32,
+     PyTorch's default), every loss finite and every parameter moved, its
+     generate and train step times, samples/s and peak memory; and its
+     forward pass on the card with TF32 off against the CPU's (|d| <= 1e-4
+     + 1e-4 |want|);
 then one JSON line {"kernels": [...]} with seven rows, and last the line
 {"ok": true, "device": {...}}.
 
@@ -2070,6 +2091,338 @@ def phase_texture_db(card, dev):
     return worst, cmp["max_abs_err"]
 
 
+# ---------------------------------------------------------------------------
+# Mode 9's "xla" bank stream, the public API and the trainer (phases 18-20)
+# ---------------------------------------------------------------------------
+
+
+def xla_bank_vs_cpu(dev):
+    """Phase 18a: the "xla" stream's bank and warp planes of one epoch at
+    128x96 (big field 384^2), on the card and by the same function on the
+    CPU, held by the bank gate."""
+    import flowgen_torch
+    from flowgen_torch.random.streams import root_key
+    from flowgen_torch.warpfields import generator as wg
+
+    cfg = flowgen_torch.DataGenConfig(mode=9, batch_size=2, width=128,
+                                      height=96, seed=0, warp_bank_impl="xla")
+    bk, ak = wg.make_bank_and_aux(root_key(cfg.seed, dev), 0, cfg)
+    bc, ac = wg.make_bank_and_aux(root_key(cfg.seed, "cpu"), 0, cfg)
+    res = {name: field_gate(a.cpu(), b) for name, a, b in (
+        ("flow", bk.flow, bc.flow), ("iflow", bk.iflow, bc.iflow),
+        ("obj_aux", ak.obj, ac.obj), ("bg_aux", ak.bg, ac.bg))}
+    bits = sum(bits_unequal(a.cpu(), b) for a, b in (
+        (bk.flow, bc.flow), (bk.iflow, bc.iflow), (ak.obj, ac.obj),
+        (ak.bg, ac.bg)))
+    print("xla bank, card vs CPU (128x96, 4 big fields of 384^2; NaN-mask "
+          "mismatch, median |d|, share of values over 0.01 px): "
+          + json.dumps(res, sort_keys=True) + f"; {bits} values with other "
+          "bits")
+    if not all(r["ok"] for r in res.values()):
+        fail("the xla bank on the card fails the bank gate against the CPU")
+    return max(r["max_abs_err"] for r in res.values())
+
+
+def bank_producer_ms(cfg, dev, impl, reps=3):
+    """Host-clock ms of one bank epoch's make_bank_and_aux in stream
+    ``impl`` (synchronized), the median of ``reps`` epochs after one
+    warm-up epoch."""
+    from flowgen_torch.random.streams import root_key
+    from flowgen_torch.warpfields import generator as wg
+
+    root = root_key(cfg.seed, dev)
+    reuse = max(cfg.warp_bank_reuse_steps, 1)
+    times = [host_ms(lambda e=e: wg.make_bank_and_aux(root, e * reuse, cfg,
+                                                      impl=impl))[0]
+             for e in range(reps + 1)]
+    return float(np.median(times[1:]))
+
+
+def phase_mode9_xla(res9, card, dev):
+    """Phase 18: mode 9 with the "xla" bank stream at 512x384, B=64. The
+    bank against the CPU's (18a); the scene kernel on the stream's warp
+    planes against its plain version on samples 0-3 of step 0, bit for bit;
+    the main path through Generator beside phase 7's (the "pallas" stream),
+    with no bank kernel launched; the bank producer's ms per epoch at
+    1536^2 in both streams. Returns the scene kernel's worst difference and
+    launches."""
+    import dataclasses
+
+    import flowgen_torch
+    from flowgen_torch.compose import fused
+    from flowgen_torch.ops import scene as ps
+    from flowgen_torch.pipeline.generator import make_slab_packer
+    from flowgen_torch.random.streams import root_key
+    from flowgen_torch.warpfields import generator as wg
+
+    bank_err = xla_bank_vs_cpu(dev)
+    cfg = flowgen_torch.DataGenConfig(mode=9, batch_size=64, seed=0,
+                                      warp_bank_impl="xla")
+    atlas = procedural_atlas(cfg.height, cfg.width)
+    cfg4 = dataclasses.replace(cfg, batch_size=4)
+    slabs = make_slab_packer(cfg4, dev)(atlas)
+    _, aux = wg.make_bank_and_aux(root_key(cfg.seed, dev), 0, cfg)
+    scenes = sample(cfg4, cfg.seed, torch.arange(4), dev, wg.bank_size(cfg))
+    args, opts = fused.scene_tables(scenes, cfg4, *slabs, aux)
+    opts = {**opts, "inverse_flow": True, "emit_masks": True}
+    k_out = ps.scene_render(*args, **opts)
+    torch.cuda.synchronize()
+    p_out = ps.scene_render_plain(*args, **opts)
+    bits = (int((k_out[0] != p_out[0]).sum()) + bits_differ(k_out[1], p_out[1])
+            + int((k_out[2] != p_out[2]).sum()))
+    plain = as_batch(p_out)
+    cmp = gates(as_batch(k_out), plain)
+    n_obj = int((scenes.objects.warp & scenes.objects.valid).sum())
+    n_bg = int(scenes.background.warp.sum())
+    print(f"mode 9 xla kernel vs plain (samples 0-3, inverse flow and ids, "
+          f"{n_obj} deforming objects, {n_bg} deforming backgrounds): "
+          + json.dumps(cmp, sort_keys=True) + f"; {bits} values with other "
+          "bits")
+    if bits or not cmp["ok"]:
+        fail("mode 9 xla: the scene kernel differs from its plain version")
+    del args, slabs, aux
+
+    first, res = run_main_path(cfg, atlas, card, prof_steps=2,
+                               label=", xla bank stream")
+    g = gates({k: first[k][:4] for k in first},
+              {k: plain[k] for k in ("image0", "image1", "flow0")})
+    print("mode 9 xla main path step 0 vs plain (samples 0-3): "
+          + json.dumps(g, sort_keys=True))
+    if not g["ok"]:
+        fail("mode 9 xla main path output disagrees with the plain render")
+    del first
+    counts = res["launches"]
+    if counts["coarse_gdisp"] or counts["hwarp_rows"]:
+        fail(f"the xla stream launched bank kernels: {counts}")
+    print(f"mode 9 pipelined, xla stream {res['ms_per_step']:.2f} ms/step "
+          f"({res['samples_per_s']:.1f} samples/s, {res['cuda_kernels']:.0f} "
+          f"CUDA kernels a step), pallas stream (phase 7) "
+          f"{res9['ms_per_step']:.2f} ms/step ({res9['samples_per_s']:.1f} "
+          f"samples/s, {res9['cuda_kernels']:.0f}), same call [{card}]")
+    xla_ms = bank_producer_ms(cfg, dev, "xla")
+    pal_ms = bank_producer_ms(cfg, dev, "pallas")
+    big = wg.big_field_size(cfg.width, cfg.height)
+    print(f"bank producer (make_bank_and_aux, {cfg.warp_fields_per_batch} big "
+          f"fields of {big}^2, host clock, synchronized, median of 3 "
+          f"epochs): xla stream {xla_ms:.1f} ms per epoch, pallas stream "
+          f"{pal_ms:.1f} ms [{card}]")
+    return {"max_abs_err": max(cmp["max_abs_err"], g["max_abs_err"]),
+            "bank_err": bank_err, "launches": counts["scene_render"],
+            "ms_per_step": res["ms_per_step"],
+            "samples_per_s": res["samples_per_s"],
+            "bank_epoch_ms": {"xla": xla_ms, "pallas": pal_ms}}
+
+
+def phase_windowed_xla(dev):
+    """Phase 19: the windowed renderer at 1024x436, B=4, mode 9 with the
+    "xla" bank stream (3072^2 big fields), through the window kernels
+    against their plain versions on samples with a deforming object and
+    background, bit for bit (the sign of a zero aside). Returns the worst
+    difference and the kernels' launches."""
+    import dataclasses
+
+    from flowgen_torch.compose.render import render_batch
+    from flowgen_torch.ops import window
+    from flowgen_torch.pipeline.generator import make_atlas_packer
+    from flowgen_torch.random.streams import root_key
+    from flowgen_torch.warpfields import generator as wg
+
+    cfg = sintel_cfg(mode=9, warp_bank_impl="xla")
+    cfg4 = dataclasses.replace(cfg, batch_size=4)
+    atlas_q = make_atlas_packer(dev)(procedural_atlas(cfg.height, cfg.width))
+    ms, bank = host_ms(lambda: wg.make_warp_bank(root_key(cfg.seed, dev), 0,
+                                                 cfg))
+    s0, scenes = windowed_samples(cfg, dev)
+    reset_counts()
+    k_out = as_windowed(render_batch(scenes, atlas_q, cfg4, bank), cfg4)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    with window.plain_versions():
+        p_out = as_windowed(render_batch(scenes, atlas_q, cfg4, bank), cfg4)
+    bits = sum(bits_differ(k_out[k], p_out[k]) for k in k_out)
+    cmp = gates(k_out, p_out)
+    big = wg.big_field_size(cfg.width, cfg.height)
+    print(f"windowed mode 9 xla kernels vs plain (samples {s0}-{s0 + 3}, "
+          f"{cfg.width}x{cfg.height}, bank of {big}^2 fields built in "
+          f"{ms:.1f} ms, launches "
+          f"{json.dumps(counts)}): " + json.dumps(cmp, sort_keys=True)
+          + f"; {bits} values with other bits")
+    if bits or not cmp["ok"]:
+        fail("windowed mode 9 xla: kernels differ from their plain versions")
+    if not counts["object_window"] or not counts["polygon_coverage"]:
+        fail(f"windowed mode 9 xla: a window kernel was not launched: {counts}")
+    return cmp["max_abs_err"], counts
+
+
+def phase_api(card, dev):
+    """Phase 20a: the exported API and the adapters on the card. The
+    DataLoader over torch_iterable_dataset (no workers) and
+    FlowStepDataSource against Generator's steps, the mixed stream over
+    modes 7 and 9 against the numpy draw and each ingredient's own batch,
+    and one step of examples/train.prototxt. All bit for bit."""
+    import flowgen_torch
+    from torch.utils.data import DataLoader
+
+    from flowgen_torch.pipeline import adapters, prototxt
+    from flowgen_torch.random.streams import root_key
+
+    def equal(a, b):
+        return set(a) == set(b) and all(
+            bits_unequal(torch.as_tensor(a[k]).to(dev), b[k].to(dev)) == 0
+            for k in b)
+
+    cfg = flowgen_torch.DataGenConfig(mode=7, batch_size=64, seed=0)
+    atlas = procedural_atlas(cfg.height, cfg.width)
+    gen = flowgen_torch.Generator(cfg, atlas=atlas, device=dev)
+    ref = [gen.retrieve_batch() for _ in range(3)]
+    gen.stop()
+    it = iter(DataLoader(adapters.torch_iterable_dataset(cfg, atlas=atlas),
+                         batch_size=None, num_workers=0))
+    loader_ok = all(equal(next(it), ref[i]) for i in range(3))
+    del it
+    src = adapters.FlowStepDataSource(cfg, num_steps=4, atlas=atlas,
+                                      start_step=1)
+    source_ok = equal(src[1], ref[2]) and equal(src[0], ref[1])
+    print(f"adapters on the card (mode 7, B={cfg.batch_size}): DataLoader over "
+          f"torch_iterable_dataset steps 0-2 equal Generator's: {loader_ok}; "
+          f"FlowStepDataSource(start_step=1)[0], [1] equal steps 1, 2: "
+          f"{source_ok}")
+    if not (loader_ok and source_ok):
+        fail("an adapter's batches differ from Generator's")
+    del ref, src
+
+    cfgs = [flowgen_torch.DataGenConfig(mode=m, batch_size=16, seed=0)
+            for m in (7, 9)]
+    mixed = flowgen_torch.make_mixed_generate_fn(cfgs, device=dev)
+    own = [flowgen_torch.make_generate_fn(c, dev) for c in cfgs]
+    root = root_key(0, dev)
+    picks, mixed_ok = [], True
+    for step in range(8):
+        u = np.random.default_rng([0, step, 0x6D69785D]).random()
+        i = int(np.searchsorted(np.cumsum([0.5, 0.5]), u, side="right"))
+        picks.append(cfgs[i].mode)
+        mixed_ok &= equal(mixed(root, step, atlas), own[i](root, step, atlas))
+    print(f"make_mixed_generate_fn over modes 7 and 9 (B={cfgs[0].batch_size}"
+          f"), steps 0-7 "
+          f"pick modes {picks}; each batch equals its ingredient's: "
+          f"{mixed_ok}")
+    if not mixed_ok or len(set(picks)) != 2:
+        fail("the mixed stream disagrees with its ingredients")
+
+    pcfg = prototxt.load_config(os.path.join(HERE, "examples",
+                                             "train.prototxt"),
+                                layout="nhwc", texture_dbases=())
+    gen = flowgen_torch.Generator(pcfg, device=dev)
+    out = gen.retrieve_batch()
+    gen.stop()
+    B, H, W = pcfg.batch_size, pcfg.height, pcfg.width
+    shapes = {k: tuple(v.shape) for k, v in out.items()}
+    print(f"examples/train.prototxt (mode {pcfg.mode}, B={B}, "
+          f"{pcfg.channel_order}): one step, {json.dumps(shapes)}")
+    if (shapes.get("image0") != (B, H, W, 3) or shapes.get("flow0") != (
+            B, H, W, 2) or not bool(torch.isfinite(out["flow0"]).all())):
+        fail("examples/train.prototxt's step is malformed")
+
+
+def phase_trainer(card, dev):
+    """Phase 20b: FlowNetS (width 32) trained on the port's batches, mode 7
+    with photometric augmentation, 512x384, B=64: 10 fused generate-and-
+    train steps with PyTorch's default TF32 setting for convolutions (on),
+    every loss finite and the parameters moved; the generate step's and the
+    train step's ms (host clock, synchronized), the fused loop's samples/s
+    and the peak memory. Then the forward pass on one fixed batch with
+    weights from a seed, on the card with TF32 off (scoped to the check)
+    against the CPU's. Returns the kernel launches of the fused loop."""
+    import dataclasses
+
+    import flowgen_torch
+    from flowgen_torch.pipeline.generator import generate_batch
+    from flowgen_torch.random.streams import root_key
+    from flowgen_torch.train import flownet
+
+    cfg = flowgen_torch.DataGenConfig(mode=7, batch_size=64, seed=0,
+                                      photometric_augment=True)
+    atlas = procedural_atlas(cfg.height, cfg.width)
+    root = root_key(cfg.seed, dev)
+    torch.manual_seed(0)
+    model = flownet.create_model(width=32).to(dev)
+    opt = flownet.make_optimizer(model)
+    before = [p.detach().clone() for p in model.parameters()]
+    prev_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True      # PyTorch's default
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    fused = flownet.make_generate_and_train_step(cfg, model, opt, dev)
+    fused(root, 0, atlas)                       # warm-up: cuDNN's choices
+    torch.cuda.synchronize()
+    n = 10
+    t0 = time.perf_counter()
+    losses = [fused(root, s, atlas) for s in range(1, n + 1)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    losses = torch.stack(losses).cpu()
+    moved = sum(float((p.detach() - q).abs().max()) > 0
+                for p, q in zip(model.parameters(), before))
+    gen = flowgen_torch.make_generate_fn(cfg, dev)
+    gen_ms = float(np.median([host_ms(lambda s=s: gen(root, s, atlas))[0]
+                              for s in range(3)]))
+    batch = gen(root, 0, atlas)
+    step = flownet.make_train_step(model, opt)
+    train_ms = float(np.median([host_ms(lambda: step(batch))[0]
+                                for _ in range(3)]))
+    torch.backends.cudnn.allow_tf32 = prev_tf32
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"FlowNetS (width 32) on mode 7 with photometric, "
+          f"B={cfg.batch_size}, {cfg.width}x{cfg.height}, "
+          f"TF32 convolutions on: losses {[round(float(x), 4) for x in losses]}"
+          f"; {moved} of {len(before)} parameter tensors moved; generate "
+          f"step {gen_ms:.2f} ms, train step {train_ms:.2f} ms (host clock, "
+          f"synchronized, median of 3); fused loop {n * cfg.batch_size / dt:.1f}"
+          f" samples/s ({1e3 * dt / n:.2f} ms a step over {n} steps); peak "
+          f"memory {peak:.2f} GiB; kernel launches {json.dumps(counts)} "
+          f"[{card}]")
+    if not bool(torch.isfinite(losses).all()) or moved != len(before):
+        fail("FlowNetS training: a loss is not finite or a parameter did not "
+             "move")
+    if counts["scene_render"] != n + 1 or counts["photometric"] != n + 1:
+        fail(f"the trainer's batches did not go through the kernels: {counts}")
+    del batch, gen, fused, opt
+
+    # The forward pass, card against CPU, on weights from a seed.
+    torch.manual_seed(1)
+    ref = flownet.create_model(width=32)
+    card_model = flownet.create_model(width=32).to(dev)
+    card_model.load_state_dict(ref.state_dict())
+    x = flownet.preprocess(generate_batch(
+        cfg.seed, 0, atlas, dataclasses.replace(cfg, batch_size=2),
+        device=dev))
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            got = [t.cpu() for t in card_model(x)]
+            want = ref(x.cpu())
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    rel = max(float(((g - w).abs() / (1e-4 + w.abs())).max())
+              for g, w in zip(got, want))
+    ok = all(torch.allclose(g, w, rtol=1e-4, atol=1e-4)
+             for g, w in zip(got, want))
+    print(f"FlowNetS forward, card (TF32 off) vs CPU (2 samples of step 0, "
+          f"width 32, weights from seed 1): max |d| {err:.3e}, max |d| / "
+          f"(1e-4 + |want|) {rel:.3e}; tolerance |d| <= 1e-4 + 1e-4 |want|: "
+          f"{ok}")
+    if not ok:
+        fail("FlowNetS forward on the card disagrees with the CPU's")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
@@ -2117,7 +2470,7 @@ def main():
                                                   card, dev)
 
     # ---- 7: the mode-9 main path ----
-    first, res = run_main_path(cfg, atlas, card, prof_steps=4)
+    first, res = run_main_path(cfg, atlas, card, prof_steps=2)
     g = gates({k: v[s0 : s0 + 4] for k, v in first.items()}, plain9)
     print(f"mode 9 main path step 0 vs plain (samples {s0}-{s0 + 3}): "
           + json.dumps(g, sort_keys=True))
@@ -2223,6 +2576,28 @@ def main():
     by_name["object_window"]["max_abs_err"] = max(
         by_name["object_window"]["max_abs_err"], window_err)
     stamp("phase 17 (TextureDB) done")
+    # ---- 18: mode 9 with the "xla" bank stream ----
+    x9 = phase_mode9_xla(res, card, dev)
+    by_name["scene_render"]["max_abs_err"] = max(
+        by_name["scene_render"]["max_abs_err"], x9["max_abs_err"])
+    by_name["scene_render"]["mode9_xla"] = {
+        k: x9[k] for k in ("launches", "ms_per_step", "samples_per_s")}
+    by_name["coarse_gdisp"]["xla_stream"] = {
+        "launches": 0, "bank_epoch_ms": x9["bank_epoch_ms"],
+        "note": "no kernel: plain PyTorch, as XLA in the JAX package"}
+    stamp("phase 18 (mode 9 xla) done")
+    # ---- 19: the windowed renderer with the "xla" bank stream ----
+    wx_err, wx_counts = phase_windowed_xla(dev)
+    for k in WINDOW_KERNELS:
+        by_name[k]["max_abs_err"] = max(by_name[k]["max_abs_err"], wx_err)
+        by_name[k]["windowed_mode9_xla_launches"] = wx_counts[k]
+    stamp("phase 19 (windowed mode 9 xla) done")
+    # ---- 20: the public API, the adapters and the trainer ----
+    phase_api(card, dev)
+    tr_counts = phase_trainer(card, dev)
+    by_name["photometric"]["trainer_launches"] = tr_counts["photometric"]
+    by_name["scene_render"]["trainer_launches"] = tr_counts["scene_render"]
+    stamp("phase 20 (API, adapters, FlowNetS) done")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

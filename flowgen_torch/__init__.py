@@ -5,6 +5,14 @@ background and 16-24 textured moving shapes per sample, and the dense
 forward flow between them, generated from ``(seed, step)``. The JAX package
 ``flowgen`` stays the reference; this package imports neither it nor JAX.
 
+Quick start::
+
+    import flowgen_torch
+
+    cfg = flowgen_torch.DataGenConfig(mode=7, batch_size=8, seed=0)
+    gen = flowgen_torch.Generator(cfg)     # on the card; device="cpu" to ask
+    batch = gen.retrieve_batch()           # {'image0','image1','flow0'}
+
 Ported so far: the mode-7 main path (and the other rigid modes): threefry
 scene sampling, the scene-kernel precompute, the hand-written CUDA scene
 kernel (``csrc/scene.cu``) with its plain PyTorch version, the output
@@ -17,17 +25,41 @@ renderer (``compose/render.py``, CUDA kernels in ``csrc/window.cu``) for
 frames that are not multiples of (8, 128), such as MPI-Sintel's 1024x436;
 and texture databases (``TextureDB``, the native loader, each source's own
 field of view) and photometric augmentation (CUDA kernel in
-``csrc/photometric.cu``).
+``csrc/photometric.cu``); mode 9's second content stream
+(``warp_bank_impl="xla"``); the Caffe prototxt front end
+(``pipeline/prototxt.py``), the data-loader adapters
+(``pipeline/adapters.py``), flow file IO and metrics (``utils/``), and the
+FlowNetS trainer (``train/``).
 """
 
 from .config import (
     DEFAULT_HEIGHT,
     DEFAULT_WIDTH,
+    KIND_COMPOSITE,
+    KIND_ELLIPSE,
+    KIND_POLYGON,
+    MAX_COMPONENTS,
+    MAX_OBJECTS,
     MODES,
     DataGenConfig,
     ModeSpec,
     disparity_mode,
     register_mode,
+)
+from .compose.render import (
+    RenderOutput,
+    WarpBank,
+    prepare_atlas,
+    render_batch,
+    render_sample,
+)
+from .params.blueprint import Background, Objects, Primitives, Scene
+from .params.sampler import sample_scene, sample_scene_batch
+from .pipeline.generator import (
+    Generator,
+    generate_batch,
+    make_generate_fn,
+    make_mixed_generate_fn,
 )
 from .texture_io import (
     TextureDB,
@@ -37,17 +69,31 @@ from .texture_io import (
     procedural_atlas,
 )
 
+__version__ = "0.1.0"
+
 __all__ = [
     "DEFAULT_HEIGHT",
     "DEFAULT_WIDTH",
-    "MODES",
     "DataGenConfig",
     "ModeSpec",
-    "disparity_mode",
+    "MODES",
     "register_mode",
+    "disparity_mode",
+    "Generator",
+    "Scene",
+    "RenderOutput",
+    "WarpBank",
+    "generate_batch",
+    "make_generate_fn",
+    "make_mixed_generate_fn",
+    "render_batch",
+    "render_sample",
+    "sample_scene",
+    "sample_scene_batch",
     "TextureDB",
     "atlas_for_config",
     "build_texture_db",
     "load_texture_db",
+    "prepare_atlas",
     "procedural_atlas",
 ]

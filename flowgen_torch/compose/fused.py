@@ -394,20 +394,10 @@ def _bg_meta_payload(scene: Scene, cfg: DataGenConfig, src_h, src_w):
     )
 
 
-def check_slice(cfg: DataGenConfig):
-    """Refuse configurations outside the ported slice, naming the ROADMAP.md
-    port-queue item that will bring them."""
-    if cfg.mode_spec.warp_p > 0.0 and cfg.warp_bank_impl != "pallas":
-        raise NotImplementedError(
-            "not ported yet (see ROADMAP.md): warp_bank_impl='xla' (mode 9's "
-            "quad-gather bank): port queue item 3")
-
-
 def check_fused(cfg: DataGenConfig):
     """The scene kernel's own conditions: frames of multiples of (8, 128)
     and a mode whose motion envelope fits its slabs. Other configurations
     render through the windowed renderer (``compose/render.py``)."""
-    check_slice(cfg)
     if not ps.fused_eligible(cfg.mode_spec, cfg.height, cfg.width):
         raise ValueError(
             f"mode {cfg.mode} at {cfg.width}x{cfg.height} does not fit the "

@@ -25,7 +25,7 @@ takes which branch and window class is read to the host once per batch
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -62,6 +62,19 @@ class WarpBank(NamedTuple):
 
     flow: torch.Tensor
     iflow: torch.Tensor
+
+
+class RenderOutput(NamedTuple):
+    """One rendered sample, the JAX package's field order: images (H, W, 3)
+    float32 in [0, 255], flows (H, W, 2) in pixels, ``flow1`` under
+    ``compute_inverse_flow`` and ``ids`` (2, H, W) int32 under
+    ``emit_masks``, else None."""
+
+    image0: torch.Tensor
+    image1: torch.Tensor
+    flow0: torch.Tensor
+    flow1: Optional[torch.Tensor]
+    ids: Optional[torch.Tensor] = None
 
 
 class WarpAux(NamedTuple):
@@ -238,6 +251,25 @@ def background_pass(scenes, atlas_q, cfg: DataGenConfig, warp_bank=None):
         flow1 = torch.stack([iqx - ix, iqy - iy], -1).contiguous()
     return (torch.round(frame0).contiguous(), torch.round(frame1).contiguous(),
             flow0, flow1)
+
+
+def background_flow(scene, cfg: DataGenConfig):
+    """The background's affine flow planes of one scene (leaves without the
+    batch axis), without the frames: ``(flow_x, flow_y, iflow_x,
+    iflow_y)``, each (H, W), the inverse pair zero unless
+    ``compute_inverse_flow``. The scene kernel evaluates the same
+    expressions in its flow init from the pixel motion (``apply_xy_det``,
+    each product rounded on its own)."""
+    H, W = cfg.height, cfg.width
+    ix, iy = raster.pixel_grid(W, H, 0.0, device=scene.background.motion.device)
+    m = affine.conjugate_about(scene.background.motion, W / 2.0, H / 2.0)
+    fqx, fqy = affine.apply_xy_det(m, ix, iy)
+    flow_x, flow_y = fqx - ix, fqy - iy
+    if cfg.compute_inverse_flow:
+        iqx, iqy = affine.apply_xy_det(affine.invert(m), ix, iy)
+        return flow_x, flow_y, iqx - ix, iqy - iy
+    z = torch.zeros_like(flow_x)
+    return flow_x, flow_y, z, z
 
 
 def _object_kernel_inputs(prims, motion, flow_motion, frame, n_prims, x0, y0):
@@ -503,3 +535,15 @@ def render_batch(scenes, atlas_q, cfg: DataGenConfig, warp_bank=None):
     if emit_ids:
         out.append(ids)
     return tuple(out)
+
+
+def render_sample(scene, atlas_q, cfg: DataGenConfig, warp_bank=None
+                  ) -> RenderOutput:
+    """Render one scene (leaves without the batch axis): :func:`render_batch`
+    on a batch of one. ``atlas_q`` is the quad-packed atlas of
+    :func:`prepare_atlas`; mode 9 passes the crop bank."""
+    out = [t[0] for t in render_batch(map_scene(lambda t: t[None], scene),
+                                      atlas_q, cfg, warp_bank)]
+    flow1 = out[3] if cfg.compute_inverse_flow else None
+    ids = out[-1] if cfg.emit_masks else None
+    return RenderOutput(out[0], out[1], out[2], flow1, ids)

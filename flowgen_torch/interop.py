@@ -5,8 +5,10 @@
 names) into the port's ``Scene``; ``slabs_from_numpy`` does the same for
 packed texture slabs, ``bank_from_numpy`` and ``aux_from_numpy`` for the
 mode-9 warp bank and its warp planes, ``texture_db_from_numpy`` for a
-texture database. Tests use them to feed both renderers the same scene,
-bank and textures, separately from RNG parity. Nothing here imports JAX.
+texture database, ``flownet_params_from_flax`` for the FlowNetS trainer's
+weights. Tests use them to feed both packages the same scene, bank,
+textures and weights, separately from RNG parity. Nothing here imports
+JAX.
 """
 
 from __future__ import annotations
@@ -85,3 +87,39 @@ def texture_db_from_numpy(db):
         sizes=np.array(db.sizes, np.int32),
         obj_tex=np.array(db.obj_tex, np.uint8),
     )
+
+
+def _flax_layers(params, prefix):
+    names = [k for k in params if k.startswith(prefix + "_")]
+    return [params[n] for n in sorted(names, key=lambda n: int(n.split("_")[1]))]
+
+
+def flownet_params_from_flax(params) -> dict:
+    """The JAX package's FlowNetS parameters (its flax ``params`` tree with
+    numpy leaves: ``Conv_0`` .. ``Conv_14``, ``ConvTranspose_0`` .. ``_3``,
+    each ``{"kernel", "bias"}``) as a ``state_dict`` of
+    ``train/flownet.py:FlowNetS``. Convolutions are named in the order flax
+    creates them: the ten encoder layers, then the five predictions
+    (coarse to fine) between the four transposed convolutions. A conv
+    kernel (kh, kw, cin, cout) becomes (cout, cin, kh, kw); a transposed
+    conv kernel (kh, kw, cin, cout) becomes (cin, cout, kh, kw) flipped in
+    both spatial axes; biases are as they are."""
+    convs = _flax_layers(params, "Conv")
+    ups = _flax_layers(params, "ConvTranspose")
+    if len(convs) != 15 or len(ups) != 4:
+        raise ValueError(f"expected 15 Conv and 4 ConvTranspose layers, got "
+                         f"{len(convs)} and {len(ups)}")
+
+    def t(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32))
+
+    out = {}
+    names = [f"enc.{i}" for i in range(10)] + [f"predict.{i}" for i in range(5)]
+    for name, layer in zip(names, convs):
+        out[name + ".weight"] = t(np.transpose(layer["kernel"], (3, 2, 0, 1)))
+        out[name + ".bias"] = t(layer["bias"])
+    for i, layer in enumerate(ups):
+        k = np.transpose(layer["kernel"], (2, 3, 0, 1))[:, :, ::-1, ::-1]
+        out[f"up.{i}.weight"] = t(k)
+        out[f"up.{i}.bias"] = t(layer["bias"])
+    return out

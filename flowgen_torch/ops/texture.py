@@ -15,7 +15,7 @@ import math
 
 import torch
 
-from .._fp import div, f32, mod
+from .._fp import div, f32, fma, mod
 from . import affine
 
 
@@ -37,18 +37,33 @@ def _batch_rows(n_img, h, w, x):
     return base.reshape((n_img,) + (1,) * (x.dim() - 1))
 
 
-def sample_bilinear(img, x, y, wrap="reflect"):
+def _lerp(a, b, t, contract):
+    """``a + (b - a) * t``; with ``contract`` the product and the sum round
+    once (``_fp.fma``), as XLA:CPU contracts them inside a fused loop."""
+    d = b - a
+    return fma(d, t, a) if contract else a + d * t
+
+
+def _bilerp(v00, v01, v10, v11, fx, fy, contract):
+    top = _lerp(v00, v01, fx, contract)
+    bot = _lerp(v10, v11, fx, contract)
+    return _lerp(top, bot, fy, contract)
+
+
+def sample_bilinear(img, x, y, wrap="reflect", contract=False):
     """Bilinear sample ``img`` (h, w, C), or (N, h, w, C) against
     coordinates (N, ...), at float coords (x, y), texel centres at integers.
-    Returns x's shape with a trailing channel axis."""
+    Returns x's shape with a trailing channel axis. ``contract``: each lerp
+    as one FMA, the JAX package's bits where XLA compiles the sampler into a
+    loop (the mode-9 "xla" stream)."""
     h, w = img.shape[-3], img.shape[-2]
     base = _batch_rows(img.shape[0], h, w, x) if img.dim() == 4 else 0
     return sample_bilinear_flat(img.reshape(-1, img.shape[-1]), base, h, w,
-                                x, y, wrap)
+                                x, y, wrap, contract=contract)
 
 
 def sample_bilinear_flat(flat, base, h, w, x, y, wrap="reflect",
-                         scrub_nan=False):
+                         scrub_nan=False, contract=False):
     """:func:`sample_bilinear` against a stack of (h, w) images flattened to
     (N*h*w, C), each sample's image selected by its row offset ``base``;
     ``scrub_nan`` replaces NaN texels by 0 before the lerp."""
@@ -67,13 +82,8 @@ def sample_bilinear_flat(flat, base, h, w, x, y, wrap="reflect",
         v = flat[base + yi * w + xi]
         return torch.nan_to_num(v) if scrub_nan else v
 
-    v00 = tap(yi0, xi0)
-    v01 = tap(yi0, xi1)
-    v10 = tap(yi1, xi0)
-    v11 = tap(yi1, xi1)
-    top = v00 + (v01 - v00) * fx
-    bot = v10 + (v11 - v10) * fx
-    out = top + (bot - top) * fy
+    out = _bilerp(tap(yi0, xi0), tap(yi0, xi1), tap(yi1, xi0), tap(yi1, xi1),
+                  fx, fy, contract)
     if wrap == "zero":
         ok = (x >= 0) & (x <= w - 1) & (y >= 0) & (y <= h - 1)
         out = torch.where(ok[..., None], out, torch.zeros_like(out))
@@ -101,8 +111,20 @@ def _reflect_fold_coord(x, n):
     return torch.where(in_range, x, torch.clamp(xr, 0.0, n - 1.0))
 
 
+def sample_bilinear_quad(quad, x, y, wrap="reflect", channels=3,
+                         contract=False):
+    """Bilinear sample from one quad-packed table (h, w, 4c), or a stack
+    (N, h, w, 4c) against coordinates (N, ...): one row gather per sample
+    point. ``contract`` as in :func:`sample_bilinear`."""
+    h, w = quad.shape[-3], quad.shape[-2]
+    base = _batch_rows(quad.shape[0], h, w, x) if quad.dim() == 4 else 0
+    return sample_bilinear_quad_flat(quad.reshape(-1, 4 * channels), base, h,
+                                     w, x, y, wrap=wrap, channels=channels,
+                                     contract=contract)
+
+
 def sample_bilinear_quad_flat(flat, base, h, w, x, y, wrap="reflect",
-                              channels=3, row_stride=None):
+                              channels=3, row_stride=None, contract=False):
     """Bilinear sample from quad-packed tables (``make_quad``), one row
     gather per sample point (the JAX package's ``sample_bilinear_quad`` and
     ``sample_bilinear_quad_flat``): a stack of (h, w, 4c) tables flattened
@@ -121,13 +143,8 @@ def sample_bilinear_quad_flat(flat, base, h, w, x, y, wrap="reflect",
     yi = _wrap_indices(y0f.to(torch.int64), h, clamp_wrap)
     stride = w if row_stride is None else row_stride
     rows = flat[base + yi * stride + xi].to(torch.float32)
-    p00 = rows[..., 0 * channels : 1 * channels]
-    p01 = rows[..., 1 * channels : 2 * channels]
-    p10 = rows[..., 2 * channels : 3 * channels]
-    p11 = rows[..., 3 * channels : 4 * channels]
-    top = p00 + (p01 - p00) * fx
-    bot = p10 + (p11 - p10) * fx
-    out = top + (bot - top) * fy
+    out = _bilerp(*(rows[..., i * channels : (i + 1) * channels]
+                    for i in range(4)), fx, fy, contract)
     if wrap == "zero":
         ok = (x >= 0) & (x <= w - 1) & (y >= 0) & (y <= h - 1)
         out = torch.where(ok[..., None], out, torch.zeros_like(out))

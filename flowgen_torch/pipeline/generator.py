@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from .. import texture_io
-from ..compose.fused import check_slice, masks_from_ids, render_batch_fused
+from ..compose.fused import masks_from_ids, render_batch_fused
 from ..compose.render import _pallas_enabled, prepare_atlas, render_batch
 from ..config import DataGenConfig
 from ..ops import photometric
@@ -213,7 +213,6 @@ def generate_batch(root, step, atlas, cfg: DataGenConfig, base_index=None,
     ``warpfields/generator.py:make_bank_and_aux``) or the windowed
     renderer's crop bank (``warp_bank``, ``make_warp_bank``); otherwise it
     is built here from ``(root, step)``."""
-    check_slice(cfg)
     dev = resolve_device(device)
     if not torch.is_tensor(root):
         root = root_key(root, dev)
@@ -271,18 +270,20 @@ def _same_root(a, b) -> bool:
 
 class BankEpochCache:
     """What ``build_fn(root, step)`` makes for a bank epoch (``step //
-    reuse``) of one root, built once per (root, epoch); a call with another
-    root drops what was cached. :meth:`prefetch_next`, called after a step's
-    work is enqueued, builds the next epoch on an epoch's last step. The
-    build launches its many small ops from the host, so this moves the
-    epoch's host time to the tail of the step before the boundary and costs
-    all of it there; it hides only the device time that overlaps with the
-    step's. A seek elsewhere only wastes the prediction; results stay
-    exact."""
+    reuse``) of one root and content stream (``warp_bank_impl``), built
+    once per (root, stream, epoch); a call with another root drops what was
+    cached, and two streams never share an epoch's entry.
+    :meth:`prefetch_next`, called after a step's work is enqueued, builds
+    the next epoch on an epoch's last step. The build launches its many small ops from the host,
+    so this moves the epoch's host time to the tail of the step before the
+    boundary and costs all of it there; it hides only the device time that
+    overlaps with the step's. A seek elsewhere only wastes the prediction;
+    results stay exact."""
 
-    def __init__(self, build_fn, reuse: int):
+    def __init__(self, build_fn, reuse: int, stream: str = "pallas"):
         self._build = build_fn
         self._reuse = max(reuse, 1)
+        self._stream = stream
         self._c = {}
 
     def _for_root(self, root):
@@ -290,24 +291,27 @@ class BankEpochCache:
             self._c = {"root": root}
         return self._c
 
+    def _epoch(self, step: int):
+        return self._stream, int(step) // self._reuse
+
     def get(self, root, step: int):
-        c, reuse = self._for_root(root), self._reuse
-        epoch = int(step) // reuse
+        c = self._for_root(root)
+        epoch = self._epoch(step)
         if c.get("epoch") != epoch:
             if c.get("next_epoch") == epoch:
                 c["val"] = c.pop("next_val")
                 del c["next_epoch"]
             else:
-                c["val"] = self._build(root, epoch * reuse)
+                c["val"] = self._build(root, epoch[1] * self._reuse)
             c["epoch"] = epoch
         return c["val"]
 
     def prefetch_next(self, root, step: int):
         c, reuse = self._for_root(root), self._reuse
-        epoch = int(step) // reuse
-        if int(step) % reuse == reuse - 1 and c.get("next_epoch") != epoch + 1:
-            c["next_val"] = self._build(root, (epoch + 1) * reuse)
-            c["next_epoch"] = epoch + 1
+        nxt = (self._stream, int(step) // reuse + 1)
+        if int(step) % reuse == reuse - 1 and c.get("next_epoch") != nxt:
+            c["next_val"] = self._build(root, nxt[1] * reuse)
+            c["next_epoch"] = nxt
 
 
 def make_generate_fn(cfg: DataGenConfig, device=None):
@@ -317,7 +321,6 @@ def make_generate_fn(cfg: DataGenConfig, device=None):
     planes, or the windowed renderer's crop bank) is cached per (root, bank
     epoch) (``cfg.warp_bank_reuse_steps`` steps) and the next epoch's is
     built ahead (:class:`BankEpochCache`)."""
-    check_slice(cfg)
     dev = resolve_device(device)
     fused = use_fused_path(cfg, dev)
     pack = make_slab_packer(cfg, dev) if fused else make_atlas_packer(dev)
@@ -338,7 +341,8 @@ def make_generate_fn(cfg: DataGenConfig, device=None):
             return warpgen.make_bank_and_aux(key, step, cfg)[1]
         return warpgen.make_warp_bank(key, step, cfg)
 
-    epochs = BankEpochCache(build, cfg.warp_bank_reuse_steps)
+    epochs = BankEpochCache(build, cfg.warp_bank_reuse_steps,
+                            cfg.warp_bank_impl)
 
     def fn(root, step, atlas):
         val = epochs.get(root, int(step))
@@ -346,6 +350,45 @@ def make_generate_fn(cfg: DataGenConfig, device=None):
                     **{"warp_aux" if fused else "warp_bank": val})
         epochs.prefetch_next(root, int(step))
         return out
+
+    return fn
+
+
+def make_mixed_generate_fn(cfgs, weights=None, device=None):
+    """A deterministic per-step mixture of configurations (the IJCV paper's
+    dataset-mixing experiments): ``fn(root, step, atlas)`` renders step
+    ``step`` with the ingredient that a host-side counter-based draw keyed
+    by ``(seed, step)`` picks, so the mixed stream stays seekable.
+    ``cfgs``: one ``DataGenConfig`` per ingredient, sharing batch and frame
+    sizes and the output signature; ``weights``: the mixture's
+    probabilities (default uniform). Each ingredient keeps its own
+    :func:`make_generate_fn`, and with it its own bank cache."""
+    if not cfgs:
+        raise ValueError("need at least one config")
+    sig = {
+        (c.batch_size, c.height, c.width, c.layout, c.channel_order,
+         c.compute_inverse_flow, c.emit_masks,
+         c.mode_spec.horizontal_only)
+        for c in cfgs
+    }
+    if len(sig) > 1:
+        raise ValueError(
+            "mixed-mode ingredients must share batch/frame dims and output "
+            f"signature; got {sorted(sig)}"
+        )
+    p = np.full(len(cfgs), 1.0 / len(cfgs)) if weights is None else (
+        np.asarray(weights, np.float64) / np.sum(weights)
+    )
+    cum = np.cumsum(p)
+    fns = [make_generate_fn(c, device) for c in cfgs]
+    seed = cfgs[0].seed
+
+    def pick(step) -> int:
+        u = np.random.default_rng([seed, int(step), 0x6D69785D]).random()
+        return int(np.searchsorted(cum, u, side="right").clip(0, len(fns) - 1))
+
+    def fn(root, step, atlas):
+        return fns[pick(step)](root, step, atlas)
 
     return fn
 
@@ -364,7 +407,6 @@ class Generator:
         as_numpy: bool = False,
         device=None,
     ):
-        check_slice(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         if atlas is None:

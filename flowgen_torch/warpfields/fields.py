@@ -3,9 +3,12 @@ field (port of ``flowgen/warpfields/fields.py``).
 
 A big field's elementary flow is the sum of support-weighted displacers
 (translation, rotation, zoom) on a hex grid; the bank integrates it 2^17-fold
-by binary doubling (``warpfields/compose.py``). Every expression here keeps
-the JAX package's order of operations and goes through ``ops/detmath``: the
-doublings amplify a 1-ulp difference into pixels, so the elementary field has
+by binary doubling: in the default ``warp_bank_impl="pallas"`` stream by
+separable row warps (``warpfields/compose.py``), in the ``"xla"`` stream by
+quad-gather bilinear lookups (:func:`self_compose`,
+:func:`make_big_fields`). Every expression here keeps the JAX package's
+order of operations and goes through ``ops/detmath``: the doublings amplify
+a 1-ulp difference into pixels, so the elementary field has
 to be bit-identical to the JAX package's.
 
 ``elementary_field`` is batched over directions: one call evaluates every
@@ -22,6 +25,7 @@ import torch
 
 from .._fp import f32
 from ..ops.detmath import det_cos, det_div, det_exp, det_recip, det_sin
+from ..ops.texture import make_quad, sample_bilinear_quad
 from ..random.streams import split, uniform, uniform_int
 
 COMPOSE_ITERS = 17
@@ -183,16 +187,54 @@ def _upsample2(field):
 
 
 def self_compose(field, iters: int = COMPOSE_ITERS):
-    """The ``warp_bank_impl="xla"`` content stream (quad-gather doublings)."""
-    raise NotImplementedError(
-        "warp_bank_impl='xla' (fields.self_compose) is not ported yet "
-        "(ROADMAP.md, port queue item 3)"
-    )
+    """Binary-doubling integration ``f <- f + f o (id + f)``, ``iters``
+    times, by quad-gather bilinear lookups: the ``warp_bank_impl="xla"``
+    content stream. ``field`` (M, 2, S, S) planes x, y. A pixel whose
+    lookup leaves the field keeps its value and is flagged, the last test
+    comes after the last doubling, and flagged pixels are NaN. The lerps
+    are FMAs (``texture.sample_bilinear_quad(contract=True)``), as XLA:CPU
+    compiles the JAX package's loop."""
+    M, _, S, _ = field.shape
+    dev = field.device
+    ys = torch.arange(S, dtype=torch.float32, device=dev)
+    py, px = torch.meshgrid(ys, ys, indexing="ij")
+    f = field.permute(0, 2, 3, 1).contiguous()
+    flagged = torch.zeros((M, S, S), dtype=torch.bool, device=dev)
+
+    def oob_of(f):
+        tx = px + f[..., 0]
+        ty = py + f[..., 1]
+        return tx, ty, (tx < 0) | (tx >= S) | (ty < 0) | (ty >= S)
+
+    for _ in range(iters):
+        tx, ty, oob = oob_of(f)
+        flagged = flagged | oob
+        lut = sample_bilinear_quad(make_quad(f), tx, ty, wrap="clamp",
+                                   channels=2, contract=True)
+        f = torch.where(oob[..., None], f, f + lut)
+    flagged = flagged | oob_of(f)[2]
+    f = torch.where(flagged[..., None], torch.full_like(f, float("nan")), f)
+    return f.permute(0, 3, 1, 2)
+
+
+def make_big_fields(grid, inverse, size: int, coarse_iters: int = 16):
+    """Composed big fields of M directions in the ``"xla"`` stream (the
+    JAX package's ``make_big_field``, every direction of a bank epoch at
+    once): the elementary field on the half lattice (stride 2) x 0.5,
+    ``coarse_iters`` doublings there, ``2 * _upsample2(nan_to_num(.))``,
+    the last ``COMPOSE_ITERS - coarse_iters`` doublings at full size,
+    ``clamp_near_zeros``. ``grid`` leaves (M, N), ``inverse`` (M,) bool.
+    Returns (M, 2, size, size) with NaN at flagged pixels."""
+    f_h = elementary_field(grid, size // 2, inverse, stride=2.0) * 0.5
+    f_h = self_compose(f_h, coarse_iters)
+    f = 2.0 * _upsample2(torch.nan_to_num(f_h))
+    return clamp_near_zeros(self_compose(f, COMPOSE_ITERS - coarse_iters))
 
 
 def make_big_field(key, size: int, coarse_iters: int = 16):
-    """The ``warp_bank_impl="xla"`` big field (``fields.make_big_field``)."""
-    raise NotImplementedError(
-        "warp_bank_impl='xla' (fields.make_big_field) is not ported yet "
-        "(ROADMAP.md, port queue item 3)"
-    )
+    """One composed ``(flow, iflow)`` pair at size x size from one field
+    key, each (2, size, size) planes x, y with NaN at flagged pixels."""
+    grid = sample_displacer_grid(key, size)
+    out = make_big_fields(*stack_grids([grid, grid], [False, True]), size,
+                          coarse_iters)
+    return out[0], out[1]

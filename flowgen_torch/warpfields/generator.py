@@ -8,9 +8,12 @@ samples), and for the scene kernel solves the separable warp's column
 inverse once per big field (``make_bank_and_aux``). Objects
 and backgrounds index the crops through their sampled warp slots.
 
-Only the default ``warp_bank_impl="pallas"`` content stream is ported; its
-composition runs through ``warpfields/compose.py`` (CUDA kernels on the
-card, their plain versions on the CPU, the same bits on both).
+``cfg.warp_bank_impl`` picks the content stream, never the device: the
+default ``"pallas"`` composes through ``warpfields/compose.py`` (CUDA
+kernels on the card, their plain versions on the CPU, the same bits on
+both); ``"xla"`` composes by quad-gather lookups (``fields.self_compose``)
+and solves the column inverse by a gather fixed point (:func:`_gdisp_xla`),
+plain PyTorch on either device, as XLA in the JAX package.
 """
 
 from __future__ import annotations
@@ -20,23 +23,16 @@ import torch
 from ..compose.render import WarpAux, WarpBank
 from ..config import DataGenConfig
 from ..ops.scene import BG_EY, bg_band_starts
+from ..ops.texture import sample_bilinear
 from ..random.streams import Stream, fold_in, stream_key
-from . import compose
-from .fields import sample_displacer_grid, stack_grids
+from . import compose, fields
+from .fields import _upsample2, sample_displacer_grid, stack_grids
 
 # Finite stand-in for the reference's NaN flow at flagged bank pixels under
 # ``warp_oob="nan"``: it rides through the kernels' linear resampling and is
 # decoded back to NaN at output adaptation (pipeline/generator._adapt_output).
 OOB_SENTINEL = 4.0e18
 OOB_FLOW_THRESH = 1.0e9
-
-
-def _xla_not_ported():
-    return NotImplementedError(
-        "warp_bank_impl='xla' (fields.self_compose, fields.make_big_field, "
-        "generator._gdisp_xla) is not ported yet (ROADMAP.md, port queue "
-        "item 3)"
-    )
 
 
 def apply_oob_policy(bank: WarpBank, policy: str) -> WarpBank:
@@ -70,10 +66,19 @@ def bank_size(cfg: DataGenConfig) -> int:
     return n_crops_per_field(cfg.width, cfg.height) * cfg.warp_fields_per_batch
 
 
-def _big_fields(root, step, cfg: DataGenConfig):
+def _stream_of(cfg: DataGenConfig, impl):
+    impl = cfg.warp_bank_impl if impl is None else impl
+    if impl not in ("pallas", "xla"):
+        raise ValueError(f"unknown warp bank stream {impl!r}")
+    return impl
+
+
+def _big_fields(root, step, cfg: DataGenConfig, impl=None):
     """The epoch's composed big fields and their inverses: (flows, iflows),
-    each (F, 2, big, big) planes x, y with NaN at flagged pixels. All 2F
-    directions compose together through shared kernel launches."""
+    each (F, 2, big, big) planes x, y with NaN at flagged pixels, in the
+    content stream ``impl`` (default ``cfg.warp_bank_impl``). All 2F
+    directions compose together, through shared launches."""
+    impl = _stream_of(cfg, impl)
     big = big_field_size(cfg.width, cfg.height)
     epoch_key = fold_in(root, int(step) // max(cfg.warp_bank_reuse_steps, 1))
     grids, flags = [], []
@@ -83,7 +88,8 @@ def _big_fields(root, step, cfg: DataGenConfig):
         grids += [g, g]
         flags += [False, True]
     grid, inverse = stack_grids(grids, flags)
-    out = compose.make_big_fields(grid, inverse, big)
+    make = compose.make_big_fields if impl == "pallas" else fields.make_big_fields
+    out = make(grid, inverse, big)
     return out[0::2], out[1::2]
 
 
@@ -105,13 +111,13 @@ def _crop_bank(flows, iflows, cfg: DataGenConfig) -> WarpBank:
     return apply_oob_policy(bank, cfg.warp_oob)
 
 
-def make_warp_bank(root, step, cfg: DataGenConfig) -> WarpBank:
+def make_warp_bank(root, step, cfg: DataGenConfig, impl=None) -> WarpBank:
     """The crop bank of one bank epoch, without the scene kernel's warp
     planes: what the windowed renderer samples (mode 9 off the fused
-    path)."""
-    if cfg.warp_bank_impl != "pallas":
-        raise _xla_not_ported()
-    return _crop_bank(*_big_fields(root, step, cfg), cfg)
+    path). ``impl``: the content stream, "pallas" or "xla", or None to
+    follow ``cfg.warp_bank_impl``; a config dial, never chosen by the
+    device."""
+    return _crop_bank(*_big_fields(root, step, cfg, impl), cfg)
 
 
 def _half_offset_expand(p, axis: int, c0: int, n_pairs: int):
@@ -131,7 +137,77 @@ def _half_offset_expand(p, axis: int, c0: int, n_pairs: int):
     return out.reshape(shape)
 
 
-def make_bank_and_aux(root, step, cfg: DataGenConfig):
+def _gdisp_xla(D, n_iter: int = 4, coarse: int = 4):
+    """Pass-1 x-displacement with the column-inverse correction for
+    displacement fields ``D`` (N, Hh, W, 2) in pixels, the ``"xla"``
+    stream's solve: gdisp(x, w) = D_x(x, y*) where w = y* + D_y(x, y*),
+    ``n_iter`` clamped-bilinear fixed-point steps on the ``coarse``-strided
+    lattice, then ``coarse.bit_length() - 1`` x2 plane upsamples. The lerps
+    are FMAs, as XLA:CPU compiles the JAX package's step. Returns (N, Hh,
+    W)."""
+    N, Hh, Ww = D.shape[:3]
+    ar = [torch.arange(n // coarse, dtype=torch.float32, device=D.device)
+          * coarse for n in (Hh, Ww)]
+    yy, xx = (t.expand(N, -1, -1) for t in torch.meshgrid(*ar, indexing="ij"))
+
+    def lookup(c, y):
+        return sample_bilinear(D[..., c : c + 1], xx, y, wrap="clamp",
+                               contract=True)[..., 0]
+
+    y = yy
+    for _ in range(n_iter):
+        y = yy - lookup(1, y)
+    gd = lookup(0, y)
+    for _ in range(coarse.bit_length() - 1):
+        gd = _upsample2(gd)
+    return gd
+
+
+def bg_upscale(iflow, bg_ey: int):
+    """The background's x2-upscaled displacement fields on the extended
+    frame grid: ``D(y, x) = 2 * iflow((x + W/2 + .5)/2 - .5, (y + H/2 +
+    .5)/2 - .5)`` for rows y in [-bg_ey, H + bg_ey), by interleaved
+    slice-lerps. ``iflow`` (N, H, W, 2) -> (N, H + 2*bg_ey, W, 2)."""
+    H, W = iflow.shape[1], iflow.shape[2]
+    rows = _half_offset_expand(iflow, 1, H // 4 - bg_ey // 2 - 1,
+                               (H + 2 * bg_ey) // 2)
+    return 2.0 * _half_offset_expand(rows, 2, W // 4 - 1, W // 2)
+
+
+def make_warp_aux(bank: WarpBank, n_iter=None, coarse: int = 4,
+                  use_pallas=None) -> WarpAux:
+    """The scene kernel's warp planes of a crop bank passed without them,
+    solved per crop: ``WarpAux(obj, bg, bg_band)``, ``obj`` (N, 4, H, W) =
+    [gdisp, iflow_y, flow_x, flow_y] and ``bg`` (N, 2, H + 2*BG_EY, W) =
+    [gdisp, iflow_y] of the background's x2-upscaled field
+    (:func:`bg_upscale`), the JAX package's ``(obj_aux, bg_aux)``.
+    ``use_pallas``: True solves with ``compose.coarse_gdisp_batch`` (its
+    CUDA kernel on the card, its plain version on the CPU; 8 iterations at
+    stride 4 only), False with :func:`_gdisp_xla` (``n_iter`` default 4),
+    None follows the device as the JAX function follows the backend: the
+    kernel on the card, :func:`_gdisp_xla` on the CPU."""
+    iflow = torch.nan_to_num(bank.iflow)
+    flow = torch.nan_to_num(bank.flow)
+    D_bg = bg_upscale(iflow, BG_EY)
+    if use_pallas is None:
+        use_pallas = iflow.device.type == "cuda"
+    if use_pallas:
+        if (n_iter or compose.SOLVE_ITERS) != compose.SOLVE_ITERS or (
+                coarse != compose.COARSE):
+            raise ValueError(
+                f"coarse_gdisp_batch solves {compose.SOLVE_ITERS} iterations "
+                f"at stride {compose.COARSE}; got {n_iter} at {coarse}")
+        solve = compose.coarse_gdisp_batch
+    else:
+        def solve(D):
+            return _gdisp_xla(D, n_iter or 4, coarse)
+    obj = torch.cat([solve(iflow)[:, None], iflow[..., 1][:, None],
+                     flow.movedim(-1, 1)], dim=1).contiguous()
+    bg = torch.stack([solve(D_bg), D_bg[..., 1]], dim=1).contiguous()
+    return WarpAux(obj, bg, bg_band_starts(bg))
+
+
+def make_bank_and_aux(root, step, cfg: DataGenConfig, impl=None):
     """Bank and scene-kernel warp planes from shared big fields, the
     hot-path producer: one column-inverse solve per big field replaces the
     per-crop solves (a crop's column is a sub-segment of its field's, and
@@ -139,12 +215,14 @@ def make_bank_and_aux(root, step, cfg: DataGenConfig):
     WarpAux(obj, bg, bg_band))``: obj (N, 4, H, W) = [gdisp, iflow_y,
     flow_x, flow_y]; bg (N, 2, H + 2*BG_EY, W) = [gdisp, iflow_y] of the
     x2-upscaled background field; bg_band the background warp's pass-1
-    bands of those planes (``ops/scene.py:bg_band_starts``)."""
-    if cfg.warp_bank_impl != "pallas":
-        raise _xla_not_ported()
+    bands of those planes (``ops/scene.py:bg_band_starts``). ``impl``
+    (default ``cfg.warp_bank_impl``) picks the stream of both the fields
+    and the solve: ``coarse_gdisp_batch`` for "pallas", :func:`_gdisp_xla`
+    with 4 iterations for "xla"."""
+    impl = _stream_of(cfg, impl)
     W, H = cfg.width, cfg.height
     origins = crop_origins(W, H)
-    flows, iflows = _big_fields(root, step, cfg)
+    flows, iflows = _big_fields(root, step, cfg, impl)
     bank = _crop_bank(flows, iflows, cfg)
 
     big_i = torch.nan_to_num(iflows)
@@ -152,7 +230,9 @@ def make_bank_and_aux(root, step, cfg: DataGenConfig):
         flows = torch.where(torch.isnan(flows),
                             torch.full_like(flows, OOB_SENTINEL), flows)
     big_f = torch.nan_to_num(flows)
-    gd_big = compose.coarse_gdisp_batch(big_i.permute(0, 2, 3, 1))  # (F, S, S)
+    D = big_i.permute(0, 2, 3, 1)
+    gd_big = (compose.coarse_gdisp_batch(D) if impl == "pallas"
+              else _gdisp_xla(D, 4, 4))                     # (F, S, S)
     big4 = torch.stack([gd_big, big_i[:, 1], big_f[:, 0], big_f[:, 1]], dim=1)
     obj_aux = _crops(big4, cfg)                             # (N, 4, H, W)
 

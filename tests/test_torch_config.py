@@ -1,6 +1,6 @@
 """The PyTorch port's package surface: its copy of the configuration and the
 procedural texture bank match the JAX package, it imports without JAX, and
-its entry points refuse what the ported slice does not cover."""
+its entry points render every configuration."""
 
 import ast
 import dataclasses
@@ -114,18 +114,52 @@ def test_generator_without_device_raises_without_card():
         Generator(cfg, atlas=atlas)
 
 
+def _texture_list(tmp_path, n=3):
+    """A texture-database list file naming ``n`` small PPM images."""
+    from flowgen_torch.utils.flow_io import write_ppm
+
+    rng = np.random.default_rng(0)
+    paths = []
+    for i in range(n):
+        path = tmp_path / f"tex{i}.ppm"
+        write_ppm(str(path), rng.integers(0, 256, (120 + 40 * i, 160, 3),
+                                          dtype=np.uint8))
+        paths.append(str(path))
+    lst = tmp_path / "list.txt"
+    lst.write_text("\n".join(paths) + "\n")
+    return str(lst)
+
+
 @pytest.mark.parametrize("kw", [
     dict(mode=9, warp_bank_impl="xla"),
     dict(mode=9, warp_bank_impl="xla", photometric_augment=True),
     dict(mode=9, warp_bank_impl="xla", render_impl="windowed"),
     dict(mode=9, warp_bank_impl="xla", texture_dbases=("list.txt",)),
+    dict(mode=9, warp_bank_impl="xla", compute_inverse_flow=True,
+         emit_masks=True),
 ])
-def test_out_of_slice_configs_raise(kw):
+def test_out_of_slice_configs_raise(kw, tmp_path):
+    """The configurations the port once refused (mode 9's "xla" bank
+    stream, alone, with photometric jitter, windowed, with a TextureDB,
+    with inverse flow and masks) now render, with the JAX package's output
+    keys, shapes and types."""
     from flowgen_torch.pipeline.generator import generate_batch
 
+    if "texture_dbases" in kw:
+        kw = {**kw, "texture_dbases": (_texture_list(tmp_path),)}
     cfg = flowgen_torch.DataGenConfig(batch_size=1, width=128, height=96, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        generate_batch(0, 0, None, cfg, device="cpu")
+    out = generate_batch(0, 0, flowgen_torch.atlas_for_config(cfg), cfg,
+                         device="cpu")
+    masks = {"occlusion", "motion_boundary"} if cfg.emit_masks else set()
+    flow1 = {"flow1"} if cfg.compute_inverse_flow else set()
+    assert set(out) == {"image0", "image1", "flow0"} | flow1 | masks
+    for k, v in out.items():
+        if k in masks:
+            assert v.shape == (1, 96, 128) and v.dtype == torch.bool
+            continue
+        c = 3 if k.startswith("image") else 2
+        assert v.shape == (1, 96, 128, c) and v.dtype == torch.float32
+        assert bool(torch.isfinite(v).all())
 
 
 @pytest.mark.parametrize("kw,tsplit", [
@@ -137,15 +171,13 @@ def test_out_of_slice_configs_raise(kw):
     (dict(mode=7, emit_masks=True, layout="nchw"), 1),
 ])
 def test_slice_configs_render(kw, tsplit):
-    """Configurations the slice now covers pass check_slice and give the
-    JAX package's output keys, shapes and types."""
-    from flowgen_torch.compose.fused import check_slice
+    """Configurations the slice covers give the JAX package's output keys,
+    shapes and types."""
     from flowgen_torch.ops.scene import resample_params
     from flowgen_torch.pipeline.generator import generate_batch
 
     cfg = flowgen_torch.DataGenConfig(**{"batch_size": 1, "width": 128,
                                          "height": 96, **kw})
-    check_slice(cfg)
     assert resample_params(cfg.mode_spec, 96, cfg.width)[6] == tsplit
     atlas = flowgen_torch.procedural_atlas(2, height=96, width=cfg.width)
     out = generate_batch(0, 0, atlas, cfg, device="cpu")

@@ -595,3 +595,67 @@ def test_generate_batch_texture_db_cuda_matches_cpu(kw):
         assert (d >= 1).float().mean().item() < 0.01
     d = (a["flow0"].cpu() - b["flow0"]).abs()
     assert d.flatten().median().item() < 1e-4
+
+
+def test_xla_bank_cuda_matches_cpu():
+    """Mode 9's "xla" bank stream (plain PyTorch on both devices) on the card
+    against the CPU, by the bank gate: NaN-mask mismatch under 1e-4, median
+    |d| < 1e-4 px, under 1e-3 of values with |d| > 0.01 px."""
+    _need_card()
+    from flowgen_torch.warpfields import generator as wg
+
+    cfg = flowgen_torch.DataGenConfig(mode=9, batch_size=2, width=128,
+                                      height=96, warp_bank_impl="xla")
+    bg, ag = wg.make_bank_and_aux(root_key(0, "cuda"), 0, cfg)
+    bc, ac = wg.make_bank_and_aux(root_key(0, "cpu"), 0, cfg)
+    for a, b in ((bg.flow, bc.flow), (bg.iflow, bc.iflow), (ag.obj, ac.obj),
+                 (ag.bg, ac.bg)):
+        a = a.cpu()
+        na, nb = torch.isnan(a), torch.isnan(b)
+        assert (na != nb).float().mean().item() < 1e-4
+        d = (a - b).abs()[~na & ~nb]
+        assert d.median().item() < 1e-4
+        assert (d > 0.01).float().mean().item() < 1e-3
+
+
+@pytest.mark.parametrize("render_impl", ["fused", "windowed"])
+def test_generate_batch_xla_cuda_matches_cpu(render_impl):
+    """Mode 9 with the "xla" stream seed to batch on the card and on the
+    CPU, within the on-device gates."""
+    _need_card()
+    cfg = flowgen_torch.DataGenConfig(mode=9, batch_size=2, width=128,
+                                      height=96, warp_bank_impl="xla",
+                                      render_impl=render_impl)
+    atlas = flowgen_torch.procedural_atlas(4, height=96, width=128)
+    g = generate_batch(1, 0, atlas, cfg, device="cuda")
+    c = generate_batch(1, 0, atlas, cfg, device="cpu")
+    for k in ("image0", "image1"):
+        d = (g[k].cpu() - c[k]).abs()
+        assert d.ge(1).float().mean().item() < 0.01
+        assert d.ge(2).float().mean().item() < 1e-4
+    d = (g["flow0"].cpu() - c["flow0"]).abs()
+    assert d.flatten().median().item() < 1e-4
+    assert (d > 0.01).float().mean().item() < 1e-3
+
+
+def test_flownet_forward_cuda_matches_cpu():
+    """FlowNetS (width 8) on the card with TF32 off against the CPU, on
+    weights from a seed: |d| <= 1e-4 + 1e-4 |want|."""
+    _need_card()
+    from flowgen_torch.train import flownet
+
+    torch.manual_seed(0)
+    ref = flownet.create_model(width=8)
+    model = flownet.create_model(width=8).cuda()
+    model.load_state_dict(ref.state_dict())
+    x = torch.randn(2, 6, 128, 256)
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            got = model(x.cuda())
+            want = ref(x)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)

@@ -313,10 +313,16 @@ def test_oob_policy_matches_jax(ref):
 
 
 def test_xla_content_stream_raises():
+    """The three functions of the "xla" stream, once refusals, return
+    fields of the right shapes: finite warp planes, a zero field kept
+    zero, a big field of the bank's magnitudes."""
     _, tc = _cfgs(warp_bank_impl="xla")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tg.make_bank_and_aux(ts.root_key(0), 0, tc)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfields.self_compose(torch.zeros(8, 8, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfields.make_big_field(ts.root_key(0), 384)
+    bank, aux = tg.make_bank_and_aux(ts.root_key(0), 0, tc)
+    n = tg.bank_size(tc)
+    assert bank.flow.shape == bank.iflow.shape == (n, H, W, 2)
+    assert aux.obj.shape == (n, 4, H, W) and bool(torch.isfinite(aux.obj).all())
+    f = tfields.self_compose(torch.zeros(1, 2, 8, 8))
+    assert f.shape == (1, 2, 8, 8) and bool((f == 0).all())
+    flow, iflow = tfields.make_big_field(ts.root_key(0), 384)
+    assert flow.shape == iflow.shape == (2, 384, 384)
+    assert 0.0 < float(torch.nan_to_num(flow).abs().max()) < 120.0
