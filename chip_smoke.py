@@ -126,6 +126,30 @@ Phases (any failure exits non-zero before the final line):
      generate and train step times, samples/s and peak memory; and its
      forward pass on the card with TF32 off against the CPU's (|d| <= 1e-4
      + 1e-4 |want|);
+ 21. generation over a torch.distributed DeviceMesh: at world size 1 (one
+     nccl rank, a "cuda" mesh ("data",)) make_sharded_generate_fn in modes
+     7 and 9 at B=64 over steps 0-2 (across a bank epoch) and windowed
+     mode 9 at B=16, each rank's to_local() against make_generate_fn's
+     batch bit for bit, every kernel count set to 0 before each sharded
+     step and read after (the sharded path's launches, in the kernels
+     line as "sharded_launches"); Generator(cfg, mesh=mesh) in mode 7 at
+     B=64, ms/step and samples/s beside phase 3's; two spawned ranks in a
+     gloo group sharing the card (a "cuda" mesh of two ranks on cuda:0),
+     modes 7 and 9 at B=16 over steps 0-2, each shard against its rows of
+     the single-process batch bit for bit, and distribute_atlas of two
+     16-texture halves against the 32-texture atlas; FlowNetS (width 32)
+     on a ("data", "model") = (1, 1) mesh (shard_model), one sharded
+     generate-and-train step on mode 7 with photometric augmentation
+     against the unsharded step, loss and gradients bit for bit with TF32
+     off and deterministic algorithms, the unsharded step run twice beside
+     it;
+ 22. the modes no other phase holds on the card, through
+     tools/torch_check_kernels.py at 512x384, B=4: modes 1-6, 8, 10, 12
+     and disparity_mode(7), disparity_mode(9), the scene kernel against its
+     plain version, both on the card, with inverse flow and ids (the JAX
+     tool's gates are the bar; the values with other bits are printed, 0
+     expected), and the fused renderer against the windowed one (flow
+     equal in the rigid modes, image medians within 1 level);
 then one JSON line {"kernels": [...]} with seven rows, and last the line
 {"ok": true, "device": {...}}.
 
@@ -761,7 +785,9 @@ def phase_mode7(card, dev):
     t = phase_scene_timing("mode 7", args, opts, card)
     return {"launches": res["launches"]["scene_render"], **t,
             "max_abs_err": max(cmp["max_abs_err"], g["max_abs_err"],
-                               t["max_abs_err"])}
+                               t["max_abs_err"]),
+            "ms_per_step": res["ms_per_step"],
+            "samples_per_s": res["samples_per_s"]}
 
 
 def one_doubling(f):
@@ -2422,6 +2448,264 @@ def phase_trainer(card, dev):
         fail("FlowNetS forward on the card disagrees with the CPU's")
     return counts
 
+def batch_bits_unequal(got, want) -> int:
+    """Values of two batches (dicts of tensors) whose bits differ, over
+    every key; a key in one only counts as a difference."""
+    if set(got) != set(want):
+        return 1
+    n = 0
+    for k, v in want.items():
+        a = got[k].to(v.device)
+        if v.dtype == torch.float32:
+            n += bits_unequal(a, v)
+        else:
+            n += int((a != v).sum())
+    return n
+
+
+def add_counts(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def sharded_generation(mesh, dev, cases, steps):
+    """For each (label, cfg) of ``cases``: ``make_sharded_generate_fn`` over
+    ``mesh`` against ``make_generate_fn``'s batch on ``dev`` over
+    ``steps``, the rank's shard against its rows bit for bit. Every count
+    is set to 0 just before each sharded step and read just after. Returns
+    ({label: values with other bits}, the sharded steps' kernel
+    launches)."""
+    from flowgen_torch.pipeline.generator import make_generate_fn
+    from flowgen_torch.pipeline.sharding import make_sharded_generate_fn
+
+    n = mesh["data"].size()
+    di = mesh.get_local_rank("data")
+    out, counts = {}, {}
+    for label, cfg in cases:
+        atlas = procedural_atlas(cfg.height, cfg.width)
+        sharded = make_sharded_generate_fn(cfg, mesh)
+        single = make_generate_fn(cfg, dev)
+        b = cfg.batch_size // n
+        out[label] = 0
+        for step in steps:
+            reset_counts()
+            got = {k: v.to_local() for k, v in
+                   sharded(cfg.seed, step, atlas).items()}
+            add_counts(counts, read_counts())
+            want = {k: v[di * b:(di + 1) * b] for k, v in
+                    single(cfg.seed, step, atlas).items()}
+            out[label] += batch_bits_unequal(got, want)
+    return out, counts
+
+
+def _two_rank_worker(rank, store, out_dir):
+    """One of phase 21's two ranks sharing the card: modes 7 and 9 at
+    B=16 over steps 0-2, its shard against its rows of the single-process
+    batch, and distribute_atlas of two 16-texture halves."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import flowgen_torch
+    from flowgen_torch.pipeline.sharding import distribute_atlas
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=2)
+    try:
+        mesh = init_device_mesh("cuda", (2,), mesh_dim_names=("data",))
+        dev = torch.device("cuda", 0)
+        cases = [(f"mode {m}", flowgen_torch.DataGenConfig(
+            mode=m, batch_size=16, seed=0)) for m in (7, 9)]
+        res = {"bits": sharded_generation(mesh, dev, cases, (0, 1, 2))[0]}
+        atlas = procedural_atlas(384, 512)
+        half = atlas.shape[0] // 2
+        got = distribute_atlas(mesh, atlas[rank * half:(rank + 1) * half])
+        res["atlas_equal"] = bool(np.array_equal(got.to_local().cpu().numpy(),
+                                                 atlas))
+        res["atlas_device"] = str(got.to_local().device)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def flownet_step_bits(model, batch, step_fn):
+    """One train step's loss and gradients: (loss, {name: full grad})."""
+    loss = step_fn(batch)
+    grads = {}
+    for k, p in model.named_parameters():
+        g = p.grad
+        grads[k] = g.full_tensor() if hasattr(g, "full_tensor") else g
+    return loss, grads
+
+
+def phase_sharding(m7, card, dev):
+    """Phase 21: generation over a DeviceMesh on the card. World size 1
+    (one nccl rank, a "cuda" mesh ("data",)): the sharded batch in modes 7
+    and 9 at B=64 over steps 0-2 (a bank epoch boundary) and windowed mode
+    9 at B=16, each bit for bit against make_generate_fn's, with every
+    kernel count at 0 before; Generator(cfg, mesh=mesh) timed in mode 7
+    beside phase 3. Two ranks sharing the card (two spawned processes, a
+    gloo group) in modes 7 and 9 at B=16, each shard against its rows of
+    the single-process batch, and distribute_atlas of two 16-texture
+    halves against the 32-texture atlas. FlowNetS (width 32) on a
+    ("data", "model") = (1, 1) mesh: one sharded generate-and-train step
+    with photometric augmentation against the unsharded step, loss and
+    gradients bit for bit, with TF32 off and deterministic algorithms
+    (the unsharded step run twice beside it).
+    Returns the sharded path's kernel launches."""
+    import dataclasses
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import flowgen_torch
+    from flowgen_torch.pipeline.generator import make_generate_fn
+    from flowgen_torch.pipeline.sharding import make_sharded_generate_fn
+    from flowgen_torch.random.streams import root_key
+    from flowgen_torch.train import flownet
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+            cases = [(f"mode {m}", flowgen_torch.DataGenConfig(
+                mode=m, batch_size=64, seed=0)) for m in (7, 9)]
+            cases.append(("windowed mode 9", flowgen_torch.DataGenConfig(
+                mode=9, batch_size=16, seed=0, render_impl="windowed")))
+            bits, counts = sharded_generation(mesh, dev, cases, (0, 1, 2))
+            print(f"sharded generation, world size 1 (nccl, \"cuda\" mesh "
+                  f"(\"data\",)), steps 0-2, to_local() vs make_generate_fn, "
+                  f"values with other bits: {json.dumps(bits)}; the sharded "
+                  f"path's kernel launches {json.dumps(counts)}")
+            if any(bits.values()):
+                fail("a sharded batch differs from the single-device batch")
+
+            cfg = cases[0][1]
+            atlas = procedural_atlas(cfg.height, cfg.width)
+            gen = flowgen_torch.Generator(cfg, atlas=atlas, mesh=mesh)
+            for _ in range(2):
+                gen.retrieve_batch()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n = 5
+            for _ in range(n):
+                gen.retrieve_batch()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            gen.stop()
+            print(f"Generator(mode 7, B=64, mesh=mesh), world size 1: "
+                  f"{1e3 * dt / n:.2f} ms/step, {cfg.batch_size * n / dt:.1f} "
+                  f"samples/s over {n} timed steps; phase 3 without a mesh "
+                  f"{m7['ms_per_step']:.2f} ms/step, "
+                  f"{m7['samples_per_s']:.1f} samples/s [{card}]")
+
+            # FlowNetS on a (1, 1) mesh against the unsharded step.
+            mesh2 = init_device_mesh("cuda", (1, 1),
+                                     mesh_dim_names=("data", "model"))
+            fcfg = dataclasses.replace(cfg, photometric_augment=True)
+            # Without deterministic algorithms the unsharded step does not
+            # repeat itself: the bilinear upsample's backward adds with
+            # atomics (about 10.8 million gradient values of width 32 at
+            # B=64 differed between two runs on an H100).
+            tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                    torch.backends.cudnn.allow_tf32,
+                    torch.are_deterministic_algorithms_enabled(),
+                    torch.is_deterministic_algorithms_warn_only_enabled())
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                torch.manual_seed(2)
+                ref = flownet.create_model(width=32)
+                models = []
+                for _ in range(3):
+                    m = flownet.create_model(width=32)
+                    m.load_state_dict(ref.state_dict())
+                    models.append(m.to(dev))
+                flownet.shard_model(models[2], mesh2)
+                batch = make_generate_fn(fcfg, dev)(0, 0, atlas)
+                plain = [flownet_step_bits(
+                    m, batch, flownet.make_train_step(
+                        m, flownet.make_optimizer(m))) for m in models[:2]]
+                sm = models[2]
+                fused = flownet.make_generate_and_train_step(
+                    fcfg, sm, flownet.make_optimizer(sm), mesh=mesh2)
+                reset_counts()
+                sharded = flownet_step_bits(
+                    sm, None, lambda _: fused(root_key(0, dev), 0, atlas))
+                add_counts(counts, read_counts())
+            finally:
+                (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32) = tf32[:2]
+                torch.use_deterministic_algorithms(tf32[2], warn_only=tf32[3])
+
+            def diff(a, b):
+                return (bits_unequal(a[0].reshape(1), b[0].reshape(1)),
+                        sum(bits_unequal(a[1][k], b[1][k]) for k in a[1]),
+                        max(float((a[1][k] - b[1][k]).abs().max())
+                            for k in a[1]))
+
+            rerun = diff(plain[0], plain[1])
+            shard = diff(sharded, plain[0])
+            print(f"FlowNetS (width 32) on a (data, model) = (1, 1) mesh, mode "
+                  f"7 with photometric, B=64, TF32 off, deterministic algorithms: "
+                  f"loss {float(sharded[0]):.6f}; sharded vs unsharded step: "
+                  f"loss values with other bits {shard[0]}, gradient values "
+                  f"with other bits {shard[1]}, max |d| {shard[2]:.3e}; "
+                  f"unsharded step run twice: {rerun[0]}, {rerun[1]}, "
+                  f"{rerun[2]:.3e}")
+            if shard[0] or shard[1]:
+                fail("the sharded FlowNetS step differs from the unsharded "
+                     "one")
+        finally:
+            dist.destroy_process_group()
+
+        # Two ranks sharing the one card.
+        t0 = time.perf_counter()
+        mp.spawn(_two_rank_worker, args=(f"{tmp}/store2", tmp), nprocs=2,
+                 join=True)
+        for rank in (0, 1):
+            with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+                r = json.load(f)
+            print(f"two ranks sharing the card (gloo, \"cuda\" mesh), rank "
+                  f"{rank}: shards vs its rows of the single-process batch "
+                  f"(B=16, steps 0-2), values with other bits "
+                  f"{json.dumps(r['bits'])}; distribute_atlas of two halves "
+                  f"equals the 32-texture atlas: {r['atlas_equal']} (on "
+                  f"{r['atlas_device']}); {time.perf_counter() - t0:.1f} s")
+            if any(r["bits"].values()) or not r["atlas_equal"]:
+                fail(f"rank {rank} of two on the card disagrees")
+    return counts
+
+
+def phase_modes(card, dev):
+    """Phase 22: the modes no other phase holds on the card, through
+    tools/torch_check_kernels.py at 512x384, B=4: the scene kernel against
+    its plain version, both on the card (with inverse flow and ids; the
+    JAX tool's gates are the bar, the bits are printed), and the fused
+    renderer against the windowed one. Returns the largest difference
+    between kernel and plain."""
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    import torch_check_kernels as ck
+
+    worst = 0.0
+    for mode in (1, 2, 3, 4, 5, 6, 8, 10, 12, 107, 109):
+        kvp = ck.kernel_vs_plain(mode, dev)
+        fvw = ck.fused_vs_windowed(mode, dev)
+        print(f"mode {mode}: kernel vs plain {json.dumps(kvp)}; fused vs "
+              f"windowed {json.dumps(fvw)}")
+        if not (kvp["ok"] and fvw["ok"]):
+            fail(f"mode {mode}: a check of phase 22 failed")
+        worst = max(worst, kvp["flow_max"], kvp["img_max"])
+    print(f"phase 22: modes 1-6, 8, 10, 12 and disparity_mode(7), "
+          f"disparity_mode(9) pass [{card}]")
+    return worst
+
 
 def main():
     if not torch.cuda.is_available():
@@ -2598,6 +2882,15 @@ def main():
     by_name["photometric"]["trainer_launches"] = tr_counts["photometric"]
     by_name["scene_render"]["trainer_launches"] = tr_counts["scene_render"]
     stamp("phase 20 (API, adapters, FlowNetS) done")
+    # ---- 21: generation and FlowNetS over a DeviceMesh ----
+    sh_counts = phase_sharding(m7, card, dev)
+    for r in rows:
+        r["sharded_launches"] = sh_counts[r["name"]]
+    stamp("phase 21 (sharding) done")
+    # ---- 22: the modes no other phase holds on the card ----
+    by_name["scene_render"]["max_abs_err"] = max(
+        by_name["scene_render"]["max_abs_err"], phase_modes(card, dev))
+    stamp("phase 22 (modes 1-6, 8, 10, 12, disparity) done")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

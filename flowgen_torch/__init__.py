@@ -29,7 +29,14 @@ field of view) and photometric augmentation (CUDA kernel in
 (``warp_bank_impl="xla"``); the Caffe prototxt front end
 (``pipeline/prototxt.py``), the data-loader adapters
 (``pipeline/adapters.py``), flow file IO and metrics (``utils/``), and the
-FlowNetS trainer (``train/``).
+FlowNetS trainer (``train/``); and generation over several devices
+through a ``torch.distributed`` ``DeviceMesh`` (``pipeline/sharding.py``,
+the ``mesh`` argument of ``Generator`` and ``make_generate_fn``), FlowNetS
+with its output channels split over a ``model`` mesh dimension
+(``train/flownet.py:shard_model``), the profiling utilities
+(``utils/profiling.py``) and a copy of the scalar numpy oracle
+(``reference_check/oracle.py``). Nothing of the JAX package is left
+unported.
 """
 
 from .config import (
@@ -61,6 +68,7 @@ from .pipeline.generator import (
     make_generate_fn,
     make_mixed_generate_fn,
 )
+from .pipeline.sharding import distribute_atlas, texture_paths_for_process
 from .texture_io import (
     TextureDB,
     atlas_for_config,
@@ -79,6 +87,8 @@ __all__ = [
     "MODES",
     "register_mode",
     "disparity_mode",
+    "distribute_atlas",
+    "texture_paths_for_process",
     "Generator",
     "Scene",
     "RenderOutput",

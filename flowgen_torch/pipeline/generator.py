@@ -20,6 +20,7 @@ without a card and without that request they raise.
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
 from typing import Iterator, Optional
@@ -44,6 +45,7 @@ from ..ops.scene import (
 from ..params.sampler import sample_scene_batch
 from ..random.streams import root_key
 from ..texture_io import TextureDB
+from ..utils.profiling import ThroughputMeter
 from ..warpfields import generator as warpgen
 
 
@@ -314,23 +316,25 @@ class BankEpochCache:
             c["next_epoch"] = nxt
 
 
-def make_generate_fn(cfg: DataGenConfig, device=None):
-    """``fn(root, step, atlas) -> batch`` with the scene kernel's slabs, or
-    the windowed renderer's quad-packed atlas, packed once per atlas. In
-    mode 9 what the renderer takes of a bank epoch (the scene kernel's warp
-    planes, or the windowed renderer's crop bank) is cached per (root, bank
-    epoch) (``cfg.warp_bank_reuse_steps`` steps) and the next epoch's is
-    built ahead (:class:`BankEpochCache`)."""
-    dev = resolve_device(device)
-    fused = use_fused_path(cfg, dev)
-    pack = make_slab_packer(cfg, dev) if fused else make_atlas_packer(dev)
+def _generate_fn(cfg: DataGenConfig, dev, part: int = 0, parts: int = 1):
+    """``fn(root, step, atlas)`` rendering rows ``[part*B/parts,
+    (part+1)*B/parts)`` of step ``step``'s global batch of ``cfg.batch_size``
+    on ``dev``: the scene kernel's slabs, or the windowed renderer's
+    quad-packed atlas, packed once per atlas; in mode 9 the bank epoch is
+    built from the global ``cfg`` (it does not depend on the batch size) and
+    cached (:class:`BankEpochCache`)."""
+    local = cfg if parts == 1 else dataclasses.replace(
+        cfg, batch_size=cfg.batch_size // parts)
+    fused = use_fused_path(local, dev)
+    pack = make_slab_packer(local, dev) if fused else make_atlas_packer(dev)
 
     def batch(root, step, atlas, **extra):
+        base = int(step) * cfg.batch_size + part * local.batch_size
         if fused:
-            return generate_batch(root, step, atlas, cfg, slabs=pack(atlas),
-                                  device=dev, **extra)
-        return generate_batch(root, step, pack(atlas), cfg, device=dev,
-                              **extra)
+            return generate_batch(root, step, atlas, local, base_index=base,
+                                  slabs=pack(atlas), device=dev, **extra)
+        return generate_batch(root, step, pack(atlas), local, base_index=base,
+                              device=dev, **extra)
 
     if cfg.mode_spec.warp_p == 0.0:
         return batch
@@ -354,7 +358,24 @@ def make_generate_fn(cfg: DataGenConfig, device=None):
     return fn
 
 
-def make_mixed_generate_fn(cfgs, weights=None, device=None):
+def make_generate_fn(cfg: DataGenConfig, device=None, mesh=None):
+    """``fn(root, step, atlas) -> batch`` with the scene kernel's slabs, or
+    the windowed renderer's quad-packed atlas, packed once per atlas. In
+    mode 9 what the renderer takes of a bank epoch (the scene kernel's warp
+    planes, or the windowed renderer's crop bank) is cached per (root, bank
+    epoch) (``cfg.warp_bank_reuse_steps`` steps) and the next epoch's is
+    built ahead (:class:`BankEpochCache`). With a ``DeviceMesh``, the batch
+    is split over its ``data`` dimension on the rank's own device
+    (``pipeline/sharding.py:make_sharded_generate_fn``) and its values are
+    DTensors."""
+    if mesh is not None:
+        from .sharding import make_sharded_generate_fn
+
+        return make_sharded_generate_fn(cfg, mesh)
+    return _generate_fn(cfg, resolve_device(device))
+
+
+def make_mixed_generate_fn(cfgs, weights=None, device=None, mesh=None):
     """A deterministic per-step mixture of configurations (the IJCV paper's
     dataset-mixing experiments): ``fn(root, step, atlas)`` renders step
     ``step`` with the ingredient that a host-side counter-based draw keyed
@@ -362,7 +383,8 @@ def make_mixed_generate_fn(cfgs, weights=None, device=None):
     ``cfgs``: one ``DataGenConfig`` per ingredient, sharing batch and frame
     sizes and the output signature; ``weights``: the mixture's
     probabilities (default uniform). Each ingredient keeps its own
-    :func:`make_generate_fn`, and with it its own bank cache."""
+    :func:`make_generate_fn` (on ``mesh`` when one is given: every rank
+    draws the same pick), and with it its own bank cache."""
     if not cfgs:
         raise ValueError("need at least one config")
     sig = {
@@ -380,7 +402,7 @@ def make_mixed_generate_fn(cfgs, weights=None, device=None):
         np.asarray(weights, np.float64) / np.sum(weights)
     )
     cum = np.cumsum(p)
-    fns = [make_generate_fn(c, device) for c in cfgs]
+    fns = [make_generate_fn(c, device, mesh) for c in cfgs]
     seed = cfgs[0].seed
 
     def pick(step) -> int:
@@ -397,7 +419,12 @@ class Generator:
     """Streaming batch source: start/stop/pause/resume, blocking
     ``retrieve_batch``, the iterator protocol, and a seekable ``step``
     counter for exact resume. ``prefetch`` steps stay enqueued on the
-    current CUDA stream ahead of the consumer."""
+    current CUDA stream ahead of the consumer; ``meter`` counts the samples
+    retrieved (``utils/profiling.py:ThroughputMeter``). With a
+    ``DeviceMesh`` every rank runs its own Generator on its own device and
+    retrieves its DTensor shard of each global batch
+    (``pipeline/sharding.py``); ``as_numpy`` then gathers the global batch
+    (``full_tensor()``, a collective on every rank)."""
 
     def __init__(
         self,
@@ -406,9 +433,16 @@ class Generator:
         start_step: int = 0,
         as_numpy: bool = False,
         device=None,
+        mesh=None,
     ):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            from .sharding import local_tensor, mesh_device
+
+            self.device = mesh_device(mesh)
+            atlas = local_tensor(atlas)
         if atlas is None:
             atlas = texture_io.atlas_for_config(cfg)
         if not use_fused_path(cfg, self.device):
@@ -416,9 +450,10 @@ class Generator:
             atlas = make_atlas_packer(self.device)(atlas)
         self._atlas = atlas
         self._root = root_key(cfg.seed, self.device)
-        self._fn = make_generate_fn(cfg, self.device)
+        self._fn = make_generate_fn(cfg, self.device, mesh)
         self._step = start_step
         self._as_numpy = as_numpy
+        self.meter = ThroughputMeter()
         self._running = False
         self._paused = threading.Event()
         self._paused.set()
@@ -484,7 +519,9 @@ class Generator:
             out = self._inflight.pop(0) if self._inflight else self._dispatch()
         self._pump()
         if self._as_numpy:
-            out = {k: v.cpu().numpy() for k, v in out.items()}
+            out = {k: (v.full_tensor() if hasattr(v, "full_tensor") else v)
+                   .cpu().numpy() for k, v in out.items()}
+        self.meter.tick(self.cfg.batch_size)
         return out
 
     def has_retrievable_batches(self) -> bool:

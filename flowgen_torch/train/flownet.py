@@ -24,6 +24,12 @@ The layers follow the JAX package's flax model and carry its weights
 
 Tensors are NCHW inside the model; :func:`preprocess` and the loss take a
 batch in either of the generator's layouts.
+
+Over a ``DeviceMesh`` (``data``, ``model``), :func:`shard_model` splits every
+layer's output channels over ``model`` (Megatron-style column parallelism,
+the JAX package's :func:`param_shardings` rule) and the train step averages
+the gradients over ``data``: what GSPMD computes from the JAX package's
+shardings, with its collectives written out.
 """
 
 from __future__ import annotations
@@ -32,8 +38,10 @@ import math
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 
 EPE_WEIGHTS = (0.005, 0.01, 0.02, 0.08, 0.32)
 
@@ -52,7 +60,66 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int):
         nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std)
 
 
-class SameConv2d(nn.Conv2d):
+class _ReduceInputGrad(torch.autograd.Function):
+    """Identity forward; backward sums the input's gradient over the model
+    group. A layer whose output channels are split sees only its own
+    channels' share of d(loss)/d(input): Megatron's copy into the
+    model-parallel region."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _GatherChannels(torch.autograd.Function):
+    """Forward gathers the ranks' output channels (dim 1) over the model
+    group; backward hands the rank back its own channels' slice of the
+    gradient, with no reduction: every model rank computes the same loss
+    from the gathered output, so a sum over ranks would count it n times
+    (Megatron's gather from the model-parallel region)."""
+
+    @staticmethod
+    def forward(ctx, y, group):
+        n = dist.get_world_size(group)
+        ctx.rank, ctx.n = dist.get_rank(group), n
+        parts = [torch.empty_like(y) for _ in range(n)]
+        dist.all_gather(parts, y.contiguous(), group=group)
+        return torch.cat(parts, dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        # A view, not a copy: the layer's bias gradient then sums the same
+        # layout as without the split (a contiguous copy moved the last bits
+        # of the bias gradients of an unsplit (1, 1) mesh on an H100).
+        c = g.shape[1] // ctx.n
+        return g.narrow(1, ctx.rank * c, c), None
+
+
+class _ColumnParallel:
+    """What :func:`shard_model` sets on a layer: ``model_group`` is the
+    process group its output channels are split over (None: replicated).
+    Parameters that are DTensors are read through ``to_local()``."""
+
+    model_group = None
+
+    def _parallel(self, x, conv):
+        w, b = self.weight, self.bias
+        if isinstance(w, DTensor):
+            w, b = w.to_local(), b.to_local()
+        if self.model_group is None:
+            return conv(x, w, b)
+        x = _ReduceInputGrad.apply(x, self.model_group)
+        return _GatherChannels.apply(conv(x, w, b), self.model_group)
+
+
+class SameConv2d(_ColumnParallel, nn.Conv2d):
     """``nn.Conv2d`` with flax's "SAME" padding, bias zero at init."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1):
@@ -64,10 +131,11 @@ class SameConv2d(nn.Conv2d):
         k, s = self.kernel_size[0], self.stride[0]
         py = _same_pad(x.shape[-2], k, s)
         px = _same_pad(x.shape[-1], k, s)
-        return super().forward(F.pad(x, (px[0], px[1], py[0], py[1])))
+        x = F.pad(x, (px[0], px[1], py[0], py[1]))
+        return self._parallel(x, lambda x, w, b: F.conv2d(x, w, b, self.stride))
 
 
-class SameConvTranspose2d(nn.ConvTranspose2d):
+class SameConvTranspose2d(_ColumnParallel, nn.ConvTranspose2d):
     """flax's ``ConvTranspose(k=4, s=2, "SAME")``: ``(n, c) -> (2n, c')``
     (see the module docstring for the kernel flip)."""
 
@@ -75,6 +143,10 @@ class SameConvTranspose2d(nn.ConvTranspose2d):
         super().__init__(cin, cout, 4, 2, padding=1)
         _lecun_normal_(self.weight, cin * 16)
         nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        return self._parallel(x, lambda x, w, b: F.conv_transpose2d(
+            x, w, b, self.stride, self.padding))
 
 
 class FlowNetS(nn.Module):
@@ -172,30 +244,112 @@ def loss_fn(model: nn.Module, batch, layout: str = "nhwc"):
     return multiscale_epe(preds, _nchw(batch["flow0"], layout))
 
 
-def make_train_step(model: nn.Module, opt, layout: str = "nhwc"):
+def _mean_over(group, tensors):
+    """Average each tensor in place over ``group`` (a sum, then a division:
+    the ``gloo`` backend has no average)."""
+    n = dist.get_world_size(group)
+    for t in tensors:
+        dist.all_reduce(t, group=group)
+        t.div_(n)
+
+
+def make_train_step(model: nn.Module, opt, layout: str = "nhwc", mesh=None):
     """``step(batch) -> loss``: one Adam update of ``model`` in place; the
-    loss stays a device tensor (reading it synchronizes)."""
+    loss stays a device tensor (reading it synchronizes). With a ``mesh``
+    that has a ``data`` dimension, ``batch`` is this rank's sub-batch: the
+    gradients and the returned loss are averaged over ``data`` before the
+    update, which makes them the global batch's (the loss is a mean of
+    per-sample means over equal sub-batches)."""
+    group = (mesh.get_group("data")
+             if mesh is not None and "data" in mesh.mesh_dim_names else None)
 
     def step(batch):
         opt.zero_grad(set_to_none=True)
         loss = loss_fn(model, batch, layout)
         loss.backward()
+        loss = loss.detach()
+        if group is not None:
+            with torch.no_grad():
+                _mean_over(group, [loss] + [
+                    p.grad.to_local() if isinstance(p.grad, DTensor)
+                    else p.grad for p in model.parameters()])
         opt.step()
-        return loss.detach()
+        return loss
 
     return step
 
 
-def make_generate_and_train_step(cfg, model: nn.Module, opt, device=None):
+def param_shardings(model: nn.Module, mesh, model_axis: str = "model"):
+    """Megatron-style column parallelism, the JAX package's rule in
+    PyTorch's layouts: ``{parameter name: placements}``, one placement a
+    mesh dimension. A convolution's output channels are split over
+    ``model_axis`` where their count divides by its size: ``Shard(0)`` for
+    a ``Conv2d`` weight (cout, cin, kh, kw), ``Shard(1)`` for a
+    ``ConvTranspose2d`` weight (cin, cout, kh, kw) (flax stores both as
+    (kh, kw, cin, cout) and splits cout), ``Shard(0)`` for a bias;
+    everything else is ``Replicate()``."""
+    n = mesh[model_axis].size()
+    names = mesh.mesh_dim_names
+
+    def place(dim):
+        return tuple(Shard(dim) if a == model_axis and dim is not None
+                     else Replicate() for a in names)
+
+    out = {}
+    for mname, mod in model.named_modules():
+        for pname, p in mod.named_parameters(recurse=False):
+            cout_dim = 1 if isinstance(mod, nn.ConvTranspose2d) else 0
+            if p.ndim == 4 and p.shape[cout_dim] % n == 0:
+                spec = place(cout_dim)
+            elif p.ndim == 1 and p.shape[0] % n == 0:
+                spec = place(0)
+            else:
+                spec = place(None)
+            out[f"{mname}.{pname}" if mname else pname] = spec
+    return out
+
+
+def shard_model(model: nn.Module, mesh, model_axis: str = "model"):
+    """Place ``model``'s parameters on ``mesh`` by :func:`param_shardings`
+    and make the split layers compute: the counterpart of the JAX package's
+    ``jax.device_put(params, param_shardings(params, mesh))`` together with
+    the collectives GSPMD inserts. Every parameter becomes a DTensor (its
+    rank's slice where split, which gives the optimizer and ``state_dict``
+    their layout; rank 0's values are distributed); a layer whose weight is
+    split convolves its replicated input with its local slice and gathers
+    the output channels over ``model_axis``, its backward handing each rank
+    its own slice of the gradient and summing the input's gradient over the
+    model ranks. Build the optimizer after this call. Returns ``model``."""
+    specs = param_shardings(model, mesh, model_axis)
+    group = mesh.get_group(model_axis)
+    for mname, mod in model.named_modules():
+        for pname, p in list(mod.named_parameters(recurse=False)):
+            spec = specs[f"{mname}.{pname}" if mname else pname]
+            mod.register_parameter(pname, nn.Parameter(
+                distribute_tensor(p.detach(), mesh, list(spec))))
+            if pname == "weight" and any(isinstance(s, Shard) for s in spec):
+                mod.model_group = group
+    return model
+
+
+def make_generate_and_train_step(cfg, model: nn.Module, opt, device=None,
+                                 mesh=None):
     """The full pipeline step: ``fused(root, step, atlas) -> loss``
     generates step ``step`` (``pipeline/generator.py:make_generate_fn``) and
-    takes one update on it, on the same device and stream."""
+    takes one update on it, on the same device and stream. With a
+    ``mesh``, each rank generates its shard of the global batch
+    (``pipeline/sharding.py``) and trains on it (``to_local()``), the
+    gradients averaged over ``data`` (:func:`make_train_step`); pass a model
+    placed by :func:`shard_model`."""
     from ..pipeline.generator import make_generate_fn
 
-    gen = make_generate_fn(cfg, device)
-    train_step = make_train_step(model, opt, cfg.layout)
+    gen = make_generate_fn(cfg, device, mesh)
+    train_step = make_train_step(model, opt, cfg.layout, mesh)
 
     def fused(root, step, atlas):
-        return train_step(gen(root, step, atlas))
+        batch = gen(root, step, atlas)
+        if mesh is not None:
+            batch = {k: v.to_local() for k, v in batch.items()}
+        return train_step(batch)
 
     return fused

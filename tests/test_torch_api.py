@@ -34,15 +34,12 @@ torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 W, H = 128, 96
-SHARDING = {"distribute_atlas", "texture_paths_for_process"}
-
-
 def test_exports_match_jax():
-    """Every name the JAX package exports, but the two of its sharding
-    module, which the port does not have yet."""
+    """Every name the JAX package exports, its sharding module's two
+    included."""
     missing = set(flowgen.__all__) - set(flowgen_torch.__all__)
-    assert missing == SHARDING
-    for name in set(flowgen.__all__) - SHARDING:
+    assert missing == set()
+    for name in flowgen.__all__:
         assert hasattr(flowgen_torch, name), name
     for name in ("KIND_COMPOSITE", "KIND_ELLIPSE", "KIND_POLYGON",
                  "MAX_COMPONENTS", "MAX_OBJECTS", "DEFAULT_HEIGHT",

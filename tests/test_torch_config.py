@@ -79,6 +79,10 @@ def test_import_without_jax():
 def _py_files():
     pkg = os.path.join(ROOT, "flowgen_torch")
     out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d in ("tools", "examples"):
+        out += [os.path.join(ROOT, d, f)
+                for f in sorted(os.listdir(os.path.join(ROOT, d)))
+                if f.startswith("torch_") and f.endswith(".py")]
     for d, _, files in os.walk(pkg):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return out
@@ -256,5 +260,8 @@ def test_all_modules_listed():
                  "flowgen_torch.compose.fused",
                  "flowgen_torch.pipeline.generator", "flowgen_torch.interop",
                  "flowgen_torch.ops.photometric",
-                 "flowgen_torch.texture_io.native"):
+                 "flowgen_torch.texture_io.native",
+                 "flowgen_torch.pipeline.sharding",
+                 "flowgen_torch.utils.profiling",
+                 "flowgen_torch.reference_check.oracle"):
         assert want in names
