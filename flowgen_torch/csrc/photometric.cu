@@ -1,29 +1,39 @@
 // Photometric augmentation on NVIDIA Hopper: FlowNet's colour, gamma,
 // brightness, contrast and per-frame Gaussian noise over a batch of image
-// pairs, in one pass.
+// pairs.
 //
 // Replaces flowgen/ops/photometric.py:augment_batch. In the JAX package that
-// is XLA, not Pallas: XLA fuses it into one elementwise loop, and this
-// kernel is that loop. Per value: threefry2x32 of the value's flat index in
-// its (H, W, 3) frame under the (sample, frame) noise key (JAX's
-// partitionable random bits), the uniform on [nextafter(-1, 0), 1),
-// XLA:CPU's float32 erf_inv (with its log1p and log), glibc's powf in
-// float64 for the gamma, the shared map, the noise and the clip. Every
-// function restates flowgen_torch/_fp.py operation for operation, and
-// __fmaf_rn stands exactly where _fp restates an XLA contraction; the file
-// is compiled with -fmad=false and exact division and square root, so the
-// kernel equals ops/photometric.py:augment_batch_plain bit for bit.
+// is XLA, not Pallas: XLA fuses it into one elementwise loop. Per value:
+// threefry2x32 of the value's flat index in its (H, W, 3) frame under the
+// (sample, frame) noise key (JAX's partitionable random bits), the uniform on
+// [nextafter(-1, 0), 1), XLA:CPU's float32 erf_inv (with its log1p and log),
+// glibc's powf in float64 for the gamma, the shared map, the noise and the
+// clip. Every function restates flowgen_torch/_fp.py operation for
+// operation, and __fmaf_rn stands exactly where _fp restates an XLA
+// contraction; the file is compiled with -fmad=false and exact division and
+// square root, so the kernels equal ops/photometric.py:augment_batch_plain
+// bit for bit.
 //
-// Layout: grid (chunks of a frame, 2 frames, B samples), 256 threads, each
-// thread kValues values kBlock apart (coalesced). Warp 0 draws the block's
-// per-sample scalars and its noise key first (lanes 0-7 in parallel, from
-// the sample key), into shared memory with glibc's pow tables. Out of
-// place: images are read once and the outputs written once, f32 NHWC.
+// Two kernels a call. photometric_table_kernel (one block a sample) draws
+// the sample's scalars and both frames' noise keys once, and tabulates the
+// shared map (colour, gamma, brightness, contrast: a function of the
+// channel and the input value alone) at the 256 whole levels of each
+// channel, into a per-sample record. photometric_kernel then reads the
+// record into shared memory and gives each thread groups of 4 whole pixels
+// (12 values, 3 float4 loads and stores, channels fixed at compile time).
+// A value that is a whole level in [0, 255] (what the renderers write, -0
+// included) reads the table; any other value takes the direct expression
+// on the same device functions. Both arms give the same bits for a level,
+// since they evaluate one function on one float32 input.
 //
 // What bounds it: the int32 work of threefry (74 operations a value) at the
-// card's int32 rate, about twice the time of its bytes (16 a value pair;
-// PERF.md). The design keeps every intermediate in registers, so the
-// bytes are the minimum; the hash is what is left.
+// card's int32 rate, about twice the time of its bytes (8 a value;
+// PERF.md). The table takes float64 pow off the per-value path; what is left
+// a value is the hash, erf_inv and one shared-memory read, about 210
+// instructions in all, so the issue slots come before the int32 lanes.
+// erf_inv's two polynomials are branches, its log's frexpf is bit
+// arithmetic and the direct arm is one branch a group, to keep that count
+// down.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -31,9 +41,24 @@
 namespace flowgen {
 
 constexpr int kThreads = 256;
-constexpr int kValues = 32;
-constexpr int kBlock = kThreads * kValues;
+constexpr int kGroups = 4;  // groups of 4 pixels a thread
+// Blocks of the value pass an SM holds: 4 caps it at 64 registers a thread
+// (3 blocks at the 80 it takes uncapped; measured by
+// tools/torch_photometric_variants.py).
+constexpr int kValueBlocks = 4;
+constexpr int kLevels = 256;
 constexpr uint32_t kAuxPhotometric = 101;
+
+// The per-sample record: the map's table (channel-major, 3 x 256 floats),
+// then the draws. 784 words, a multiple of 4 (float4 copies).
+constexpr int kRecSigma = 3 * kLevels;      // noise sigma times sqrt(2)
+constexpr int kRecKey = kRecSigma + 1;      // frame 0's key, frame 1's key
+constexpr int kRecColor = kRecKey + 4;      // colour / 255, 3 floats
+constexpr int kRecGamma = kRecColor + 3;
+constexpr int kRecBright = kRecGamma + 1;
+constexpr int kRecContrast = kRecBright + 1;
+constexpr int kRecord = 784;
+static_assert(kRecContrast < kRecord && kRecord % 4 == 0, "record layout");
 
 __device__ __forceinline__ uint32_t rotl(uint32_t x, int d) {
   return __funnelshift_l(x, x, d);
@@ -74,12 +99,15 @@ __device__ __forceinline__ float uniform(uint32_t bits, float lo, float span) {
   return fmaxf(__fmaf_rn(u, span, lo), lo);
 }
 
-// _fp.log: XLA:CPU's Cephes log with its contractions.
+// _fp.log: XLA:CPU's Cephes log with its contractions. xc is a positive
+// normal or +inf (fmaxf drops a NaN), so frexpf is its exponent field and
+// its mantissa under the exponent of 0.5 (an inf's result is replaced
+// below).
 __device__ __forceinline__ float xla_log(float x) {
   const float xc = fmaxf(x, __int_as_float(0x00800000));  // 2^-126
-  int ei;
-  const float m = frexpf(xc, &ei);
-  float e = (float)ei;
+  const int bits = __float_as_int(xc);
+  const float m = __int_as_float((bits & 0x007FFFFF) | 0x3F000000);
+  float e = (float)((bits >> 23) - 126);
   const bool fold = m < 0.707106781186547524f;
   const float z = fold ? (m - 1.0f) + m : m - 1.0f;
   e = fold ? e - 1.0f : e;
@@ -101,6 +129,8 @@ __device__ __forceinline__ float xla_log(float x) {
 }
 
 // _fp.log1p: XLA's elemental log1p (Cephes rational below sqrt(2) - 1).
+// For the finite x that erf_inv passes, the Horner sums' first steps
+// fma(0, x, c) are c, and start there.
 __device__ __forceinline__ float xla_log1p(float x) {
   const float num[7] = {4.5270000862445199635215e-5f, 4.9854102823193375972212e-1f,
                         6.5787325942061044846969e0f,  2.9911919328553073277375e1f,
@@ -114,9 +144,9 @@ __device__ __forceinline__ float xla_log1p(float x) {
                         2.1642788614495947685003e2f,
                         6.0118660497603843919306e1f};
   const float x2 = x * x;
-  float pn = 0.0f, pd = 0.0f;
+  float pn = num[0], pd = den[0];
 #pragma unroll
-  for (int i = 0; i < 7; ++i) {
+  for (int i = 1; i < 7; ++i) {
     pn = __fmaf_rn(pn, x, num[i]);
     pd = __fmaf_rn(pd, x, den[i]);
   }
@@ -126,6 +156,8 @@ __device__ __forceinline__ float xla_log1p(float x) {
 }
 
 // _fp.erf_inv: CHLO's float32 erf_inv (Giles), Horner steps contracted.
+// The two polynomials are two branches (not a select of each coefficient):
+// w >= 5 takes 0.3% of the uniform draws, so most warps run one.
 __device__ __forceinline__ float xla_erf_inv(float x) {
   const float lo_c[9] = {2.81022636e-08f,  3.43273939e-07f, -3.5233877e-06f,
                          -4.39150654e-06f, 0.00021858087f,  -0.00125372503f,
@@ -134,15 +166,22 @@ __device__ __forceinline__ float xla_erf_inv(float x) {
                          -0.00367342844f,  0.00573950773f,  -0.0076224613f,
                          0.00943887047f,   1.00167406f,     2.83297682f};
   const float w = -xla_log1p(x * -x);
-  const bool lo = w < 5.0f;
-  const float t = lo ? w - 2.5f : __fsqrt_rn(w) - 3.0f;
-  float p = lo ? lo_c[0] : hi_c[0];
+  float p;
+  if (w < 5.0f) {
+    const float t = w - 2.5f;
+    p = lo_c[0];
 #pragma unroll
-  for (int i = 1; i < 9; ++i) p = __fmaf_rn(p, t, lo ? lo_c[i] : hi_c[i]);
+    for (int i = 1; i < 9; ++i) p = __fmaf_rn(p, t, lo_c[i]);
+  } else {
+    const float t = __fsqrt_rn(w) - 3.0f;
+    p = hi_c[0];
+#pragma unroll
+    for (int i = 1; i < 9; ++i) p = __fmaf_rn(p, t, hi_c[i]);
+  }
   return fabsf(x) == 1.0f ? x * __int_as_float(0x7F800000) : p * x;
 }
 
-// glibc's powf tables (_fp._POW_LOG2_TAB, _POW_EXP2_TAB), staged per block.
+// glibc's powf tables (_fp._POW_LOG2_TAB, _POW_EXP2_TAB).
 __device__ const double kLog2Tab[16][2] = {
     {0x1.661ec79f8f3bep+0, -0x1.efec65b963019p-2},
     {0x1.571ed4aaf883dp+0, -0x1.b0b6832d4fca4p-2},
@@ -173,15 +212,9 @@ __device__ const unsigned long long kExp2Tab[32] = {
     0x3fef3720dcef9069ull, 0x3fef5818dcfba487ull, 0x3fef7c97337b9b5full,
     0x3fefa4afa2a490daull, 0x3fefd0765b6e4540ull};
 
-struct PowTables {
-  double log2[16][2];
-  long long exp2[32];
-};
-
 // _fp.pow: glibc's powf for positive normal x and |y log2 x| < 126, in
 // float64 without contraction, rounded once to float32.
-__device__ __forceinline__ float glibc_powf(float x, float y,
-                                            const PowTables& tb) {
+__device__ __forceinline__ float glibc_powf(float x, float y) {
   const uint32_t ix = __float_as_uint(x);
   const uint32_t tmp = ix - 0x3F330000u;
   const int i = (int)((tmp >> 19) & 15u);
@@ -189,7 +222,7 @@ __device__ __forceinline__ float glibc_powf(float x, float y,
   const uint32_t iz = ix - top;
   const int k = (int)top >> 23;
   const double z = (double)__uint_as_float(iz);
-  const double invc = tb.log2[i][0], logc = tb.log2[i][1];
+  const double invc = __ldg(&kLog2Tab[i][0]), logc = __ldg(&kLog2Tab[i][1]);
   const double r = z * invc - 1.0;
   const double y0 = logc + (double)k;
   const double r2 = r * r;
@@ -204,8 +237,8 @@ __device__ __forceinline__ float glibc_powf(float x, float y,
   const double kd = (ylogx + shift) - shift;
   const double rr = ylogx - kd;
   const long long ki = (long long)(kd * 32.0);
-  const double s =
-      __longlong_as_double(tb.exp2[ki & 31] + ki * (1ll << 47));
+  const double s = __longlong_as_double(
+      (long long)__ldg(&kExp2Tab[ki & 31]) + ki * (1ll << 47));
   const double zz = 0x1.c6af84b912394p-5 * rr + 0x1.ebfce50fac4f3p-3;
   const double rr2 = rr * rr;
   double yy = 0x1.62e42ff0c52d6p-1 * rr + 1.0;
@@ -213,30 +246,30 @@ __device__ __forceinline__ float glibc_powf(float x, float y,
   return __double2float_rn(yy * s);
 }
 
+// The shared map of one value: colour, gamma, brightness and contrast.
+__device__ __forceinline__ float shared_map(float x, float color, float gamma,
+                                            float bright, float contrast) {
+  float y = fmaxf(x * color, 1e-6f);
+  y = glibc_powf(y, gamma);
+  y = (y + bright) + -0.5f;
+  return __fmaf_rn(y, contrast, 0.5f);
+}
+
 struct Consts {
   float c_lo, c_span, g_lo, g_span, k_lo, k_span, n_lo, n_span, bright_k;
 };
 
-struct SampleDraws {
-  float color[3];  // colour / 255
-  float gamma, bright, contrast, sigma;  // sigma times sqrt(2)
-  uint32_t key[2];  // this frame's noise key
-};
-
+// One block a sample. Warp 0 derives the sample's draws from its key
+// (lanes 0-8 in parallel), then each thread tabulates one level of each
+// channel.
 __global__ void __launch_bounds__(kThreads)
-    photometric_kernel(const long long* __restrict__ root,
-                       const long long* __restrict__ indices,
-                       const float* __restrict__ img0,
-                       const float* __restrict__ img1,
-                       float* __restrict__ out0, float* __restrict__ out1,
-                       int n, Consts cs) {
-  __shared__ PowTables tb;
-  __shared__ SampleDraws sd;
-  const int b = blockIdx.z, frame = blockIdx.y;
-  const int tid = threadIdx.x;
+    photometric_table_kernel(const long long* __restrict__ root,
+                             const long long* __restrict__ indices,
+                             float* __restrict__ records, Consts cs) {
+  __shared__ float draws[8];  // colour x3, gamma, bright, contrast, sigma
+  const int b = blockIdx.x, tid = threadIdx.x;
+  float* __restrict__ rec = records + (size_t)b * kRecord;
   if (tid < 32) {
-    tb.log2[tid >> 1][tid & 1] = kLog2Tab[tid >> 1][tid & 1];
-    tb.exp2[tid] = (long long)kExp2Tab[tid];
     // sample_key, fold_in(AUX_PHOTOMETRIC), then key j of the 7-way split.
     uint32_t s0 = 0, s1 = (uint32_t)indices[b];
     threefry((uint32_t)root[0], (uint32_t)root[1], s0, s1);
@@ -244,71 +277,167 @@ __global__ void __launch_bounds__(kThreads)
     threefry(s0, s1, a0, a1);
     const int lane = tid;
     // Lanes 0-2 colour word 0-2, 3 gamma, 4 brightness, 5 contrast, 6
-    // noise sigma, 7 this frame's noise key.
-    const uint32_t j = lane < 3 ? 0u : lane < 7 ? (uint32_t)(lane - 2)
-                                                : (uint32_t)(5 + frame);
+    // noise sigma, 7 and 8 the two frames' noise keys.
+    const uint32_t j = lane < 3 ? 0u : (uint32_t)(lane - 2);
     uint32_t k0 = 0, k1 = j;
     threefry(a0, a1, k0, k1);
-    if (lane == 7) {
-      sd.key[0] = k0;
-      sd.key[1] = k1;
+    if (lane == 7 || lane == 8) {
+      uint32_t* key = reinterpret_cast<uint32_t*>(rec + kRecKey);
+      key[2 * (lane - 7)] = k0;
+      key[2 * (lane - 7) + 1] = k1;
     } else if (lane < 7) {
       const uint32_t bits = random_word(k0, k1, lane < 3 ? (uint32_t)lane : 0u);
+      float d;
       if (lane < 3) {
-        sd.color[lane] = uniform(bits, cs.c_lo, cs.c_span) * 0.00392156886f;
+        d = uniform(bits, cs.c_lo, cs.c_span) * 0.00392156886f;
       } else if (lane == 3) {
-        sd.gamma = uniform(bits, cs.g_lo, cs.g_span);
+        d = uniform(bits, cs.g_lo, cs.g_span);
       } else if (lane == 4) {
-        sd.bright =
-            xla_erf_inv(uniform(bits, -0.99999994f, 2.0f)) * cs.bright_k;
+        d = xla_erf_inv(uniform(bits, -0.99999994f, 2.0f)) * cs.bright_k;
       } else if (lane == 5) {
-        sd.contrast = uniform(bits, cs.k_lo, cs.k_span) + 1.0f;
+        d = uniform(bits, cs.k_lo, cs.k_span) + 1.0f;
       } else {
-        sd.sigma = uniform(bits, cs.n_lo, cs.n_span) * 1.41421354f;
+        d = uniform(bits, cs.n_lo, cs.n_span) * 1.41421354f;
       }
+      draws[lane] = d;
     }
   }
   __syncthreads();
+  const float gamma = draws[3], bright = draws[4], contrast = draws[5];
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    rec[c * kLevels + tid] =
+        shared_map((float)tid, draws[c], gamma, bright, contrast);
+  if (tid < 3) rec[kRecColor + tid] = draws[tid];
+  if (tid == 3) rec[kRecGamma] = gamma;
+  if (tid == 4) rec[kRecBright] = bright;
+  if (tid == 5) rec[kRecContrast] = contrast;
+  if (tid == 6) rec[kRecSigma] = draws[6];
+}
+
+// x + 2^23 holds x's nearest integer in its low mantissa bits: x is whole
+// when subtracting 2^23 gives x back, and a level in [0, 255] (-0 too)
+// when those bits are 2^23's plus 0..255. Returns the level, or -1.
+__device__ __forceinline__ int whole_level(float x) {
+  const float y = x + 8388608.0f;
+  const uint32_t level = __float_as_uint(y) - 0x4B000000u;
+  return level <= 255u && y - 8388608.0f == x ? (int)level : -1;
+}
+
+// The noise and the clip of one mapped value at flat index idx.
+__device__ __forceinline__ float add_noise(float m, uint32_t idx, uint32_t k0,
+                                           uint32_t k1, float sigma) {
+  const float e =
+      xla_erf_inv(uniform(random_word(k0, k1, idx), -0.99999994f, 2.0f));
+  return fminf(fmaxf(__fmaf_rn(e, sigma, m), 0.0f), 1.0f) * 255.0f;
+}
+
+// Grid (chunks of a frame's pixel groups, 2 frames, B samples). kVec: every
+// frame starts 16-byte aligned and holds whole groups (n % 12 == 0), so a
+// group is three float4; otherwise scalar accesses with a tail.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads, kValueBlocks)
+    photometric_kernel(const float* __restrict__ records,
+                       const float* __restrict__ img0,
+                       const float* __restrict__ img1,
+                       float* __restrict__ out0, float* __restrict__ out1,
+                       int n) {
+  __shared__ __align__(16) float rec[kRecord];
+  const int b = blockIdx.z, frame = blockIdx.y, tid = threadIdx.x;
+  if (tid < kRecord / 4)
+    reinterpret_cast<float4*>(rec)[tid] =
+        reinterpret_cast<const float4*>(records + (size_t)b * kRecord)[tid];
+  __syncthreads();
+  const uint32_t* key = reinterpret_cast<const uint32_t*>(rec + kRecKey);
+  const uint32_t k0 = key[2 * frame], k1 = key[2 * frame + 1];
+  const float sigma = rec[kRecSigma];
   const float* __restrict__ src = (frame ? img1 : img0) + (size_t)b * n;
   float* __restrict__ dst = (frame ? out1 : out0) + (size_t)b * n;
-  const uint32_t k0 = sd.key[0], k1 = sd.key[1];
-  const float gamma = sd.gamma, bright = sd.bright;
-  const float contrast = sd.contrast, sigma = sd.sigma;
-  const int base = blockIdx.x * kBlock + tid;
-#pragma unroll 4
-  for (int v = 0; v < kValues; ++v) {
-    const int idx = base + v * kThreads;
-    if (idx >= n) break;
-    float x = fmaxf(src[idx] * sd.color[idx % 3], 1e-6f);
-    x = glibc_powf(x, gamma, tb);
-    x = (x + bright) + -0.5f;
-    x = __fmaf_rn(x, contrast, 0.5f);
-    const float e =
-        xla_erf_inv(uniform(random_word(k0, k1, (uint32_t)idx), -0.99999994f,
-                            2.0f));
-    x = __fmaf_rn(e, sigma, x);
-    dst[idx] = fminf(fmaxf(x, 0.0f), 1.0f) * 255.0f;
+  const int ngroups = (n + 11) / 12;
+#pragma unroll 1
+  for (int g = 0; g < kGroups; ++g) {
+    const int q = (blockIdx.x * kGroups + g) * kThreads + tid;
+    if (q >= ngroups) break;
+    const int base = 12 * q;
+    float v[12];
+    if (kVec) {
+      const float4* s4 = reinterpret_cast<const float4*>(src + base);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const float4 t = __ldcs(s4 + k);
+        v[4 * k] = t.x;
+        v[4 * k + 1] = t.y;
+        v[4 * k + 2] = t.z;
+        v[4 * k + 3] = t.w;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < 12; ++k) v[k] = base + k < n ? src[base + k] : 0.0f;
+    }
+    // The map: the table for whole levels; any other value (none on the
+    // renderers' frames) takes the direct expression, behind one branch a
+    // group.
+    float m[12];
+    bool whole = true;
+#pragma unroll
+    for (int k = 0; k < 12; ++k) {
+      const int level = whole_level(v[k]);
+      whole &= level >= 0;
+      m[k] = rec[(k % 3) * kLevels + (level & 0xFF)];
+    }
+    if (!whole) {
+#pragma unroll
+      for (int k = 0; k < 12; ++k)
+        if (whole_level(v[k]) < 0)
+          m[k] = shared_map(v[k], rec[kRecColor + k % 3], rec[kRecGamma],
+                            rec[kRecBright], rec[kRecContrast]);
+    }
+#pragma unroll
+    for (int k = 0; k < 12; ++k)
+      v[k] = add_noise(m[k], (uint32_t)(base + k), k0, k1, sigma);
+    if (kVec) {
+      float4* d4 = reinterpret_cast<float4*>(dst + base);
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        __stcs(d4 + k, make_float4(v[4 * k], v[4 * k + 1], v[4 * k + 2],
+                                   v[4 * k + 3]));
+    } else {
+#pragma unroll
+      for (int k = 0; k < 12; ++k)
+        if (base + k < n) dst[base + k] = v[k];
+    }
   }
 }
 
 }  // namespace flowgen
 
 // root (2,) and indices (B,) are int64 tensors of uint32 values on the card;
-// images (B, n) float32 each. The nine constants come by value
-// (ops/photometric.py:kernel_constants).
+// images (B, n) float32 each; records (B, 784) float32 scratch. The nine
+// constants come by value (ops/photometric.py:kernel_constants).
 extern "C" int flowgen_photometric(const long long* root,
                                    const long long* indices, const float* img0,
                                    const float* img1, float* out0, float* out1,
-                                   int B, int n, float c_lo, float c_span,
-                                   float g_lo, float g_span, float k_lo,
-                                   float k_span, float n_lo, float n_span,
-                                   float bright_k, void* stream) {
+                                   float* records, int B, int n, float c_lo,
+                                   float c_span, float g_lo, float g_span,
+                                   float k_lo, float k_span, float n_lo,
+                                   float n_span, float bright_k, void* stream) {
   using namespace flowgen;
-  if (B <= 0 || n <= 0 || B > 65535) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || n <= 0 || n % 3 || B > 65535) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
   const Consts cs = {c_lo, c_span, g_lo,  g_span,  k_lo,
                      k_span, n_lo, n_span, bright_k};
-  const dim3 grid((n + kBlock - 1) / kBlock, 2, B);
-  photometric_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      root, indices, img0, img1, out0, out1, n, cs);
+  photometric_table_kernel<<<B, kThreads, 0, st>>>(root, indices, records, cs);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int ngroups = (n + 11) / 12;
+  const dim3 grid((ngroups + kGroups * kThreads - 1) / (kGroups * kThreads), 2,
+                  B);
+  const bool vec = n % 12 == 0 &&
+                   ((uintptr_t)img0 | (uintptr_t)img1 | (uintptr_t)out0 |
+                    (uintptr_t)out1) % 16 == 0;
+  if (vec)
+    photometric_kernel<true><<<grid, kThreads, 0, st>>>(records, img0, img1, out0, out1, n);
+  else
+    photometric_kernel<false><<<grid, kThreads, 0, st>>>(records, img0, img1, out0, out1, n);
   return (int)cudaGetLastError();
 }

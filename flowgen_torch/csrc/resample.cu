@@ -8,8 +8,18 @@
 // pass1_row_start, the column window the whole slab width. Block (32, 8);
 // grid over the window. Compiled with -fmad=false, as the scene kernel.
 // Bound by bytes (the window written once, the slab texels of its footprint
-// read once): under 1 MB for a 192x256 window, so a call's time is mostly
-// the launch's own cost (PERF.md).
+// read once): 3.3 MB for a 384x512 window, a microsecond at the card's
+// memory rate, so a call's time is mostly the launch's own cost and one
+// round trip of reads and writes (PERF.md). The row start, uniform over
+// the launch, is computed once a block by its first thread, not in every
+// thread. Forms that resample 2 or 4 pixels a thread or write a row
+// segment through shared memory as 16-byte stores read no faster, and an
+// unpack of a texel's bytes through the float32 bit pattern 2^23 + byte
+// saves under 0.0001 ms at any shape measured (PERF.md), so a thread keeps
+// one pixel and resample.cuh's arithmetic. Staging a row band in shared
+// memory would not help either: a rotated row of the window spans tens of
+// slab rows, while a pixel's 4 reads hit lines that its neighbours in the
+// warp read too (L1).
 
 #include <cuda_runtime.h>
 
@@ -28,12 +38,15 @@ __global__ void __launch_bounds__(256)
   float co[6];
 #pragma unroll
   for (int k = 0; k < 6; ++k) co[k] = coeffs.v[k];
+  __shared__ int w0_s;
+  if (threadIdx.x == 0 && threadIdx.y == 0)
+    w0_s = pass1_row_start(co, x0, y0, wh, ww, P, SH);
+  __syncthreads();
   const int j = blockIdx.x * 32 + threadIdx.x;
   const int i = blockIdx.y * 8 + threadIdx.y;
   if (i >= wh || j >= ww) return;
-  const int w0 = pass1_row_start(co, x0, y0, wh, ww, P, SH);
   float v[3];
-  two_pass_pixel(slab, SW, w0, 0, SW, P, co, x0 + j, y0 + i, v);
+  two_pass_pixel(slab, SW, w0_s, 0, SW, P, co, x0 + j, y0 + i, v);
   float* o = out + ((size_t)i * ww + j) * 3;
   o[0] = v[0];
   o[1] = v[1];

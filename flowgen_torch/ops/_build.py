@@ -173,7 +173,7 @@ def load_photometric_library():
     lib = _load("flowgen_photometric")
     fn = lib.flowgen_photometric
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [
             ctypes.c_float] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib

@@ -8,8 +8,9 @@ AUX_PHOTOMETRIC)`` for global sample index ``i``, an id outside the
 ``random.streams.Stream`` bits-table layout, so turning the stage on
 reshuffles no scene content.
 
-``augment_batch`` launches the hand-written CUDA kernel
-(``csrc/photometric.cu``) for CUDA tensors and runs
+``augment_batch`` launches the hand-written CUDA kernels
+(``csrc/photometric.cu``: a table of the shared map per sample, then the
+values) for CUDA tensors and runs
 :func:`augment_batch_plain` for CPU tensors. In the JAX package the stage is
 XLA, fused into one elementwise loop; the kernel is that loop. Both follow
 XLA:CPU's arithmetic: its float32 ``erf_inv``, ``log1p`` and ``pow``
@@ -44,6 +45,10 @@ class PhotoParams(NamedTuple):
     contrast_range: Tuple[float, float] = (-0.8, 0.4)  # factor = 1 + c
     noise_sigma_range: Tuple[float, float] = (0.0, 0.04)  # per-frame
 
+
+# Words of the kernel's per-sample record (csrc/photometric.cu:kRecord):
+# the map's 3 x 256 table, then the draws.
+RECORD_WORDS = 784
 
 _INV255 = _fp.f32(np.float32(1.0) / np.float32(255.0))
 _GAMMA_FLOOR = _fp.f32(1e-6)
@@ -104,21 +109,41 @@ def augment_pair(key, img0, img1, params: PhotoParams = PhotoParams()):
     return o0[0], o1[0]
 
 
+def _shared_map(x, color, gamma, bright, contrast):
+    """The map both frames of a sample share, on (B, ..., 3) values: colour,
+    gamma, brightness and contrast, from :func:`shared_draws`."""
+    view = (-1,) + (1,) * (x.dim() - 1)
+    x = torch.clamp(x * color.reshape(color.shape[:1] + (1,) * (x.dim() - 2)
+                                      + (3,)), min=_GAMMA_FLOOR)
+    x = _fp.pow(x, gamma.reshape(view))
+    x = (x + bright.reshape(view)) + -0.5
+    return _fp.fma(x, contrast.reshape(view), 0.5)
+
+
 def _augment(keys7, images0, images1, params):
     color, gamma, bright, contrast, sigma = shared_draws(keys7, params)
     shape = tuple(images0.shape[1:])
     view = (-1,) + (1,) * len(shape)
     outs = []
     for f, x in ((5, images0), (6, images1)):
-        x = torch.clamp(x * color[:, None, None, :], min=_GAMMA_FLOOR)
-        x = _fp.pow(x, gamma.reshape(view))
-        x = (x + bright.reshape(view)) + -0.5
-        x = _fp.fma(x, contrast.reshape(view), 0.5)
+        x = _shared_map(x, color, gamma, bright, contrast)
         noise = _fp.erf_inv(streams.uniform(
             keys7[:, f], streams.NORMAL_LO, 1.0, shape))
         x = _fp.fma(noise, sigma.reshape(view), x)
         outs.append(torch.clamp(x, 0.0, 1.0) * 255.0)
     return tuple(outs)
+
+
+def map_table(root, indices, params: PhotoParams = PhotoParams()):
+    """The shared map of each sample at the 256 whole levels of each
+    channel, (B, 3, 256) float32: the plain version of the kernel's table
+    pass. A frame value that is a whole level L in [0, 255] maps to
+    ``table[b, c, L]`` bit for bit."""
+    color, gamma, bright, contrast, _ = shared_draws(
+        photo_keys(root, indices), params)
+    levels = torch.arange(256, dtype=torch.float32, device=color.device)
+    x = levels[None, :, None].expand(color.shape[0], 256, 3)
+    return _shared_map(x, color, gamma, bright, contrast).transpose(1, 2)
 
 
 def augment_batch_plain(root, indices, images0, images1,
@@ -133,9 +158,9 @@ def augment_batch(root, indices, images0, images1,
     keyed per global sample index ``indices`` (B,) under the root key
     ``root`` (2,). Out of place: returns two new tensors.
 
-    CUDA tensors launch the photometric kernel (once per call, counted in
-    ``augment_batch.launches``); CPU tensors run
-    :func:`augment_batch_plain`."""
+    CUDA tensors launch the photometric kernels (the table pass and the
+    value pass, one call counted once in ``augment_batch.launches``); CPU
+    tensors run :func:`augment_batch_plain`."""
     if images0.device.type == "cpu":
         return augment_batch_plain(root, indices, images0, images1, params)
     if images0.device.type != "cuda":
@@ -168,13 +193,14 @@ def _augment_cuda(root, indices, images0, images1, params):
             raise ValueError(f"augment_batch: {name} must be contiguous")
     out0 = torch.empty_like(images0)
     out1 = torch.empty_like(images1)
+    records = torch.empty((B, RECORD_WORDS), dtype=torch.float32, device=dev)
     lib = load_photometric_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     consts = [ctypes.c_float(c) for c in kernel_constants(params)]
     err = lib.flowgen_photometric(
         ptr(root), ptr(indices), ptr(images0), ptr(images1), ptr(out0),
-        ptr(out1), B, n, *consts, ctypes.c_void_p(stream))
+        ptr(out1), ptr(records), B, n, *consts, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"photometric kernel launch failed: CUDA error "
                            f"{err}")

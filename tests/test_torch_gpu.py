@@ -412,6 +412,29 @@ def test_affine_resample_kernel_matches_plain():
     assert torch.equal(k.cpu(), p)
 
 
+@pytest.mark.parametrize("h,w,wh,ww", [(768, 1024, 384, 512),
+                                       (872, 2048, 436, 1024)])
+def test_affine_resample_kernel_matches_plain_on_frames(h, w, wh, ww):
+    """Whole frames, as the background pass resamples them: a 384x512
+    output from the 2H x 2W source of 512x384 and a 436x1024 one from
+    MPI-Sintel's 872x2048, in slabs with the scene kernel's margin."""
+    from flowgen_torch.ops import resample as res
+    from flowgen_torch.ops.scene import SLAB_MARGIN as M
+
+    _need_card()
+    img = torch.from_numpy(flowgen_torch.procedural_atlas(
+        1, height=h // 2, width=w // 2, seed=2)[0])
+    slab = res.pack_padded_slab(img, M, M)
+    P = res.max_row_span(wh, ww, 0.23, 1.35)
+    c, s = 1.1 * math.cos(-0.2), 1.1 * math.sin(-0.2)
+    cx, cy = 0.5 * ww, 0.5 * wh
+    t = torch.tensor([[c, -s, M + 0.5 * w - (c * cx - s * cy) + 3.3],
+                      [s, c, M + 0.5 * h - (s * cx + c * cy) - 7.6]])
+    k = res.affine_resample(slab.cuda(), t, 0, 0, wh=wh, ww=ww, P=P)
+    p = res.affine_resample_plain(slab, t, 0, 0, wh=wh, ww=ww, P=P)
+    assert torch.equal(k.cpu().view(torch.int32), p.view(torch.int32))
+
+
 def _star_edges(rng, n, cx, cy, r0, r1):
     """(4, E) closed star outline of ``n`` edges padded with its first
     point, as the window kernel's edge rows [ax; ay; bx; by]."""
@@ -517,18 +540,29 @@ def test_object_window_kernel_matches_plain(sampled, use_aa, emit_flow):
     assert torch.equal(pfl.cpu(), fl) != emit_flow
 
 
-@pytest.mark.parametrize("batch,height,width", [(3, 96, 128), (2, 384, 512),
-                                                (1, 37, 53)])
+@pytest.mark.parametrize("batch,height,width", [(1, 37, 53), (3, 96, 128),
+                                                (64, 384, 512)])
 def test_photometric_kernel_matches_plain(batch, height, width):
-    """The photometric kernel equals its plain version bit for bit, out of
-    place, at frame sizes that do and do not fill its blocks."""
+    """The photometric kernels equal their plain version bit for bit, out
+    of place, at frame sizes that do and do not fill whole float4 groups,
+    on values that take both arms of the value pass: whole levels (0 and
+    255 included) read the table; fractional values, -0 and values one ulp
+    off a level take the direct expression (-0 the table's too)."""
     from flowgen_torch.ops import photometric
 
     _need_card()
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(batch)
     a, b = (torch.randint(0, 256, (batch, height, width, 3), generator=g)
-            .float().to(dev) for _ in range(2))
+            .float() for _ in range(2))
+    flat = a.view(-1)
+    flat[::5] += torch.rand(flat[::5].shape, generator=g)
+    flat[1::9] = torch.nextafter(flat[1::9], torch.tensor(300.0))
+    flat[2::9] = torch.nextafter(flat[2::9], torch.tensor(-1.0))
+    flat[3::17] = -0.0
+    flat[4::17] = 0.0
+    flat[5::17] = 255.0
+    a, b = a.to(dev), b.to(dev)
     root = root_key(11, dev)
     idx = torch.arange(5, 5 + batch, device=dev)
     before = photometric.augment_batch.launches

@@ -213,3 +213,36 @@ def test_generate_batch_mode7_matches_jax():
     dflow = np.abs(got["flow0"].numpy() - np.asarray(want["flow0"]))
     assert np.median(dflow) < 1e-4
     assert (dflow > 0.01).mean() < 1e-3
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_map_table_holds_the_shared_map_of_every_level(seed):
+    """What the kernel's table rests on: the shared map of a whole level L
+    of channel c depends on (sample, c, L) alone. For every level of every
+    channel, placed anywhere in a frame (-0 standing for 0), ``map_table``'s
+    entry equals the map ``_augment`` computes there, bit for bit; and the
+    table with the noise added gives ``augment_batch_plain``'s bits."""
+    b, h, w = 3, 16, 16
+    rng = np.random.default_rng(seed)
+    lv = np.stack([np.stack([rng.permutation(256) for _ in range(3)], -1)
+                   for _ in range(b)]).reshape(b, h, w, 3).astype(np.float32)
+    x = torch.from_numpy(lv)
+    x[1][x[1] == 0] = -0.0
+    root, idx = ts.root_key(seed), torch.arange(4, 4 + b)
+    table = tph.map_table(root, idx)
+    assert table.shape == (b, 3, 256) and table.dtype == torch.float32
+    keys7 = tph.photo_keys(root, idx)
+    color, gamma, bright, contrast, sigma = tph.shared_draws(keys7)
+    mapped = tph._shared_map(x, color, gamma, bright, contrast)
+    level = torch.from_numpy(lv).long()
+    looked_up = torch.stack([table[i].gather(1, level[i].reshape(-1, 3).T).T
+                             .reshape(h, w, 3) for i in range(b)])
+    np.testing.assert_array_equal(_bits(looked_up.numpy()),
+                                  _bits(mapped.numpy()))
+    want = tph.augment_batch_plain(root, idx, x, x)
+    for f, wf in ((5, want[0]), (6, want[1])):
+        noise = _fp.erf_inv(ts.uniform(keys7[:, f], ts.NORMAL_LO, 1.0,
+                                       (h, w, 3)))
+        got = torch.clamp(_fp.fma(noise, sigma.reshape(-1, 1, 1, 1),
+                                  looked_up), 0.0, 1.0) * 255.0
+        np.testing.assert_array_equal(_bits(got.numpy()), _bits(wf.numpy()))
