@@ -89,7 +89,8 @@ Phases (any failure exits non-zero before the final line):
      slab and on whole 384x512 and 436x1024 frames from the 2H x 2W
      sources (as the background pass resamples them): CUDA events, the
      plain versions once, the bound, and beside it an empty kernel's launch
-     timed the same way (the floor);
+     timed the same way (the floor); the window again with band widths of
+     1 and 2 tiles (x_tiles_scan, y_tiles_scan), bit for bit;
  16. photometric augmentation in mode 7 at 512x384, B=64: the CUDA kernels
      (csrc/photometric.cu: the table pass and the value pass) against
      their plain version on step 0's rendered frames and on frames off the
@@ -156,6 +157,14 @@ Phases (any failure exits non-zero before the final line):
      tool's gates are the bar; the values with other bits are printed, 0
      expected), and the fused renderer against the windowed one (flow
      equal in the rigid modes, image medians within 1 level);
+ 23. coarse_gdisp_batch at every lattice stride (1, 2, 4, 8) and step count
+     (0, 4, 8, 20) on the bank's 8 fields of 768^2 and 3072^2, each against
+     its plain version bit for bit, timed by CUDA events with its bytes
+     bound and share (the coarse_gdisp row's "strides"); the keyed "pallas"
+     big field at 384^2 on the card against the CPU, bit for bit; the
+     row's "launches" there are the kernel launches of the mode-9 main
+     path's calls (phase 7) at any stride or step count but the bank's
+     (4, 8), each call's recorded as it ran;
 then one JSON line {"kernels": [...]} with seven rows, and last the line
 {"ok": true, "device": {...}}.
 
@@ -847,8 +856,8 @@ def run_main_path(cfg, atlas, card, n_steps=5, prof_steps=3, label=""):
 
 
 def phase_scene_timing(label, args, opts, card):
-    """Phases 4, 8 and 11: the scene kernel on step 0's B=64 tables. The
-    main path's launch by CUDA events, and the background pass alone
+    """Phases 4, 8, 11 and 17: the scene kernel on step 0's B=64 tables.
+    The main path's launch by CUDA events, and the background pass alone
     (``bg_only``) beside it: the difference is the object loop. Then the
     launch with inverse flow and id images against the plain version, bit
     for bit (frames, all four flow planes, ids; the sign of a zero aside),
@@ -1122,11 +1131,12 @@ def epoch_hwarp(cfg, dev, card):
     return res
 
 
-def coarse_bytes(D):
+def coarse_bytes(D, stride: int = 4):
     """coarse_gdisp_batch's bytes bound: the coarse subsample of both
-    channels read once, the full-size plane written once."""
+    channels (every ``stride``-th row and column) read once, the full-size
+    plane written once."""
     N, Hd, Wd, _ = D.shape
-    return 4.0 * (2 * N * (Hd // 4) * (Wd // 4) + N * Hd * Wd)
+    return 4.0 * (2 * N * (Hd // stride) * (Wd // stride) + N * Hd * Wd)
 
 
 def bits_unequal(a, b) -> int:
@@ -1218,15 +1228,16 @@ def epoch_coarse(cfg, dev):
         restore()
     res = {"calls": len(calls), "ms": 0.0, "bound_ms": 0.0,
            "max_abs_err": 0.0, "bits_differ": 0, "shapes": {}}
-    for (D,), _ in calls:
-        k = compose.coarse_gdisp_batch(D)
+    for args, kw in calls:
+        D = args[0]
+        call = functools.partial(compose.coarse_gdisp_batch, *args, **kw)
+        k = call()
         with compose.plain_versions():
-            p = compose.coarse_gdisp_batch(D)
+            p = call()
         res["max_abs_err"] = max(res["max_abs_err"], float((k - p).abs().max()))
         res["bits_differ"] += bits_unequal(k, p)
         del k, p
-        res["ms"] += event_ms(lambda: compose.coarse_gdisp_batch(D), reps=3,
-                              cold=True)
+        res["ms"] += event_ms(call, reps=3, cold=True)
         res["bound_ms"] += 1e3 * coarse_bytes(D) / PEAK_BYTES_S
         shape = "x".join(map(str, D.shape))
         res["shapes"][shape] = res["shapes"].get(shape, 0) + 1
@@ -1577,15 +1588,22 @@ def phase_windowed_main(cfg, atlas, atlas_q, plain, card, dev, n_steps=5,
     return res
 
 
-def record_launches(module, name):
-    """Wrap ``module.name`` so that each call records its arguments; returns
-    (the record list, a function that restores the wrapper)."""
+def record_launches(module, name, keep=None):
+    """Wrap ``module.name`` so that each call records its arguments, or
+    ``keep(args, kw, launches)`` with the launches the call counted (and no
+    tensor) where ``keep`` is given; returns (the record list, a function
+    that restores the wrapper)."""
     orig = getattr(module, name)
     calls = []
 
     def rec(*args, **kw):
-        calls.append((args, kw))
-        return orig(*args, **kw)
+        if keep is None:
+            calls.append((args, kw))
+            return orig(*args, **kw)
+        c0 = rec.launches
+        out = orig(*args, **kw)
+        calls.append(keep(args, kw, rec.launches - c0))
+        return out
 
     # The wrapper counts on the name it is under (an older tree's may not).
     rec.launches = getattr(orig, "launches", 0)
@@ -1954,9 +1972,9 @@ def resample_inputs(case, dev):
     return slab, t, x0, y0, wh, ww, P
 
 
-def phase_affine_resample(card, dev):
-    """Phase 15b: the standalone affine resampler at each of
-    :func:`resample_cases`, against its plain version, timed beside an
+def resample_timing(card, dev):
+    """The standalone affine resampler at each of :func:`resample_cases`
+    with its default bands, against its plain version, timed beside an
     empty kernel's launch (the floor under any launch's time) and its bytes
     bound: the window written once (12 bytes a pixel) and the slab texels
     its footprint covers read once (4 bytes each). Beside the device time
@@ -1997,6 +2015,31 @@ def phase_affine_resample(card, dev):
         out.append({"shape": label, "ms": ms, "call_ms": call_ms,
                     "plain_ms": p_ms,
                     "max_abs_err": err, "launch_floor_ms": floor_ms, **bd})
+    return out
+
+
+def phase_affine_resample(card, dev):
+    """Phase 15b: :func:`resample_timing`, then band widths narrower than
+    the default 4 tiles (x_tiles_scan, y_tiles_scan), where a tap outside
+    its block's band reads 0 in the kernel and its plain version, bit for
+    bit."""
+    from flowgen_torch.ops import resample as res
+
+    out = resample_timing(card, dev)
+    slab, t, x0, y0, wh, ww, P = resample_inputs(resample_cases()[0], dev)
+    for xs, ys in ((1, 1), (2, 1), (1, 2)):
+        kw = dict(wh=wh, ww=ww, P=P, x_tiles_scan=xs, y_tiles_scan=ys)
+        k = res.affine_resample(slab, t, x0, y0, **kw)
+        p = res.affine_resample_plain(slab, t, x0, y0, **kw)
+        err, bits = float((k - p).abs().max()), bits_differ(k, p)
+        print(f"affine_resample, {resample_cases()[0][0]}, bands of {xs} and "
+              f"{ys} tiles: {int((p == 0).sum())} values read 0 in the plain "
+              f"version; max |d| vs plain {err}, {bits} values with other "
+              f"bits")
+        if bits or err != 0.0:
+            fail(f"affine_resample with bands ({xs}, {ys}) differs from its "
+                 "plain version")
+        out[0]["max_abs_err"] = max(out[0]["max_abs_err"], err)
     return out
 
 
@@ -2977,6 +3020,96 @@ def phase_modes(card, dev):
     return worst
 
 
+COARSE_STRIDES = (1, 2, 4, 8)
+COARSE_STEPS = (0, 4, 8, 20)
+
+
+def coarse_case(args, kw, launches):
+    """A coarse_gdisp_batch call's (stride, n_iter) and its launches, for
+    record_launches."""
+    from flowgen_torch.warpfields import compose
+
+    stride = args[1] if len(args) > 1 else kw.get("stride", compose.COARSE)
+    n_iter = (args[2] if len(args) > 2
+              else kw.get("n_iter", compose.SOLVE_ITERS))
+    return stride, n_iter, launches
+
+
+def other_coarse_launches(cases):
+    """The launches of the recorded coarse_gdisp_batch calls at any stride
+    or step count but the bank's, and the calls by (stride, n_iter)."""
+    from flowgen_torch.warpfields import compose
+
+    bank = (compose.COARSE, compose.SOLVE_ITERS)
+    calls = {}
+    for stride, n_iter, _ in cases:
+        k = f"{stride}/{n_iter}"
+        calls[k] = calls.get(k, 0) + 1
+    return sum(n for s, it, n in cases if (s, it) != bank), calls
+
+
+def phase_coarse_strides(card, dev):
+    """Phase 23: coarse_gdisp_batch at every lattice stride (1, 2, 4, 8)
+    and fixed-point step count (0, 4, 8, 20) on the bank's own 8 fields of
+    768^2 (bank epoch 0 at 512x384, the 16th half-lattice doubling) and of
+    3072^2 (the full-size doubling at 1024x436), each against its plain
+    version on the same card tensors bit for bit, timed by CUDA events
+    (back to back, 10 calls) with its bytes bound and share; the bank's
+    own case (stride 4, 8 steps) is among them. Then the keyed "pallas" big
+    field (compose.make_big_field) at 384^2 on the card against the CPU,
+    bit for bit. main() adds the main path's launches at these strides
+    and step counts (phase 7's record). Returns the readings and the worst
+    difference."""
+    import flowgen_torch
+    from flowgen_torch.random.streams import Stream, root_key, stream_key
+    from flowgen_torch.warpfields import compose
+
+    cfg = flowgen_torch.DataGenConfig(mode=9, batch_size=64, seed=0)
+    shapes = (("768", lambda: bank_doubling_inputs(cfg, dev)[0]),
+              ("3072", lambda: bank_doubling_inputs(sintel_cfg(mode=9),
+                                                    dev)[1]))
+    rows, worst, bits = {}, 0.0, 0
+    for label, fields_of in shapes:
+        D = fields_of().permute(0, 2, 3, 1)
+        for stride in COARSE_STRIDES:
+            for n_iter in COARSE_STEPS:
+                call = functools.partial(compose.coarse_gdisp_batch, D,
+                                         stride, n_iter)
+                c0 = compose.coarse_gdisp_batch.launches
+                k = call()
+                launches = compose.coarse_gdisp_batch.launches - c0
+                with compose.plain_versions():
+                    p = call()
+                err = float((k - p).abs().max())
+                nb = bits_unequal(k, p)
+                del k, p
+                ms = event_ms(call)
+                bound = 1e3 * coarse_bytes(D, stride) / PEAK_BYTES_S
+                rows[f"{label}/s{stride}/n{n_iter}"] = r = {
+                    "ms": ms, "bound_ms": bound, "share": bound / ms,
+                    "kernels_a_call": launches, "max_abs_err": err,
+                    "bits_differ": nb}
+                worst, bits = max(worst, err), bits + nb
+                print(f"coarse_gdisp_batch on 8 fields of {label}^2, stride "
+                      f"{stride}, {n_iter} steps: {ms:.4f} ms (CUDA events, "
+                      f"back to back), bound {bound:.4f} ms by bytes, share "
+                      f"{r['share']:.3f}, {launches} kernels a call; vs "
+                      f"plain max |d| {err}, {nb} values with other bits "
+                      f"[{card}]", flush=True)
+        del D
+    key = stream_key(root_key(3), Stream.WARP_FIELD, 0)
+    g = compose.make_big_field(key.to(dev), 384)
+    c = compose.make_big_field(key, 384)
+    big_bits = sum(bits_unequal(a.cpu(), b) for a, b in zip(g, c))
+    print(f"keyed pallas big field (compose.make_big_field, 384^2), card vs "
+          f"CPU: {big_bits} values with other bits (NaN included), "
+          f"{int(torch.isnan(c[0]).sum())} flagged flow pixels")
+    if worst != 0.0 or bits or big_bits:
+        fail("coarse_gdisp_batch at other strides or step counts, or the "
+             "keyed big field, differs from its plain version")
+    return {"shapes": rows, "keyed_big_field_384_bits_differ": big_bits}, worst
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
@@ -3024,7 +3157,22 @@ def main():
                                                   card, dev)
 
     # ---- 7: the mode-9 main path ----
-    first, res = run_main_path(cfg, atlas, card, prof_steps=2)
+    from flowgen_torch.warpfields import compose
+
+    coarse_cases, restore = record_launches(compose, "coarse_gdisp_batch",
+                                            coarse_case)
+    try:
+        first, res = run_main_path(cfg, atlas, card, prof_steps=2)
+    finally:
+        restore()
+    other_launches, coarse_calls = other_coarse_launches(coarse_cases)
+    print(f"mode 9 main path coarse_gdisp_batch calls by (stride, n_iter): "
+          f"{json.dumps(coarse_calls)}; launches at other strides or step "
+          f"counts than the bank's (4, 8): {other_launches}")
+    if sum(n for _, _, n in coarse_cases) != res["launches"]["coarse_gdisp"]:
+        fail("the recorded coarse_gdisp_batch launches disagree with the "
+             "counter")
+    del coarse_cases
     g = gates({k: v[s0 : s0 + 4] for k, v in first.items()}, plain9)
     print(f"mode 9 main path step 0 vs plain (samples {s0}-{s0 + 3}): "
           + json.dumps(g, sort_keys=True))
@@ -3161,6 +3309,14 @@ def main():
     by_name["scene_render"]["max_abs_err"] = max(
         by_name["scene_render"]["max_abs_err"], phase_modes(card, dev))
     stamp("phase 22 (modes 1-6, 8, 10, 12, disparity) done")
+    # ---- 23: coarse_gdisp_batch at every stride and step count ----
+    strides, c_err = phase_coarse_strides(card, dev)
+    strides["launches"] = other_launches
+    strides["main_path_calls"] = coarse_calls
+    by_name["coarse_gdisp"]["strides"] = strides
+    by_name["coarse_gdisp"]["max_abs_err"] = max(
+        by_name["coarse_gdisp"]["max_abs_err"], c_err)
+    stamp("phase 23 (coarse_gdisp strides and steps) done")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

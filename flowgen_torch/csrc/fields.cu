@@ -3,10 +3,10 @@
 // row-tiled horizontal warp.
 //
 // Replaces flowgen/warpfields/pallas_fields.py:
-//   * coarse_solve_kernel + upsample4_kernel <- coarse_gdisp_batch (its
-//     pallas_call on _coarse_solve_kernel and the XLA around it: the
-//     strided subsample, transposes, scale and pads before, the slice,
-//     transpose and two _upsample2_plane after);
+//   * coarse_solve_kernel + upsample4_kernel (or upsample2_kernel) <-
+//     coarse_gdisp_batch (its pallas_call on _coarse_solve_kernel and the
+//     XLA around it: the strided subsample, transposes, scale and pads
+//     before, the slice, transpose and log2(stride) _upsample2_plane after);
 //   * hwarp_rows_kernel <- _hwarp_kernel (pallas_call in _hwarp_rows).
 //
 // Both read their two bilinear taps per element through the TPU kernels'
@@ -43,11 +43,12 @@
 //     (256 CTAs at 768^2), each owning a slab of rows whose iterate stays
 //     in registers for all the steps;
 //   * stages its rows of both planes in shared memory once, read straight
-//     from D's strided coarse samples (transposed, y scaled by 1/4, no copy
-//     in PyTorch): the lanes of its tile and a halo of kSolveHalo on each
-//     side, which holds every tap of displacements under 4 * kSolveHalo px;
-//     a tap the band allows outside the halo reads D itself, so any input
-//     gives the plain version's result;
+//     from D's strided coarse samples (transposed, y scaled by 1/stride, no
+//     copy in PyTorch): the lanes of its tile and a halo of kSolveHalo on
+//     each side, which holds every tap of displacements under stride *
+//     kSolveHalo px (128 at the bank's stride 4); a tap the band allows
+//     outside the halo reads D itself, so any input and any stride give the
+//     plain version's result;
 //   * needs a block minimum only where the band can move (more than `scan`
 //     tiles in the lattice: from 1536^2 up; at 768^2 every band is [0, 256)
 //     and no CTA waits on another) and never at the first step (d = 0: the
@@ -57,19 +58,25 @@
 //     its own: no cluster-wide barrier (and no GPU-scope fence) a step;
 //   * writes the coarse result untransposed through shared memory, so the
 //     upsample reads and writes along rows.
-// A slab holds at most 64 rows in registers (fields up to 4096 px wide);
-// past that coarse_solve_wide_kernel takes the same blocks, steps and
-// exchange with the iterate in global memory and every tap read from D.
-// upsample4_kernel then writes each fine 4x4 block from its 2x2 coarse
-// neighbourhood: the rounded (a + b) * 0.5 steps of two _upsample2 stages
-// (rows, then columns, twice, the last node replicated), one float4 store
-// a fine row. (Writing those blocks in the solve's epilogue instead, with
-// a seam kernel for the tiles' last lanes, measured slower at 768^2: PERF.md.)
+// A slab holds at most 64 rows in registers (fields up to 4096 px wide at
+// stride 4); past that coarse_solve_wide_kernel takes the same blocks,
+// steps and exchange with the iterate in global memory and every tap read
+// from D. At the bank's stride 4, upsample4_kernel then writes each fine
+// 4x4 block from its 2x2 coarse neighbourhood: the rounded (a + b) * 0.5
+// steps of two _upsample2 stages (rows, then columns, twice, the last node
+// replicated), one float4 store a fine row. (Writing those blocks in the
+// solve's epilogue instead, with a seam kernel for the tiles' last lanes,
+// measured slower at 768^2: PERF.md.) Other strides take log2(stride)
+// launches of upsample2_kernel, one _upsample2 stage each (none at stride
+// 1, where the solve writes the output). The stride and the step count are
+// run-time arguments; stride 4 is also a compile-time case of the solve.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace flowgen {
 
@@ -107,13 +114,12 @@ __device__ __forceinline__ void band_of(int min_u0, int n_src, int scan,
 // Coarse column-inverse solve
 // ---------------------------------------------------------------------------
 
-constexpr int kCoarse = 4;             // lattice stride (two x2 upsamples)
+constexpr int kCoarse = 4;             // the bank's lattice stride (two x2 upsamples)
 constexpr int kSolveSplit = 16;        // CTAs a block (non-portable cluster)
 constexpr int kSolveRows = 4;          // least rows of threads a CTA
 constexpr int kSolveHalo = 32;         // staged lanes each side of a tile
 constexpr int kSolveWin = kLanes + 2 * kSolveHalo;
 constexpr int kSolveStride = kSolveWin + 1;   // odd: staging spreads banks
-constexpr int kSolveMaxSteps = 16;
 constexpr int kSolveMaxItems = 8;      // rows a thread
 constexpr int kSolveMaxThreads = 1024;
 // Most rows a slab holds in registers; longer slabs take the wide kernel.
@@ -160,17 +166,31 @@ __device__ __forceinline__ void red_min_async(uint32_t dst, int v, uint32_t bar)
       : "memory");
 }
 
+// max into the unsigned at shared::cluster address `dst`, completing 4
+// bytes on the mbarrier at shared::cluster address `bar` (the same CTA's).
+__device__ __forceinline__ void red_max_async(uint32_t dst, unsigned v, uint32_t bar) {
+  asm volatile(
+      "red.async.relaxed.cluster.shared::cluster.mbarrier::complete_tx::bytes.max.u32 "
+      "[%0], %1, [%2];" ::"r"(dst),
+      "r"(v), "r"(bar)
+      : "memory");
+}
+
 // The solve's planes, read in place from D (N, Hd, Wd, 2) by its element
-// strides: dyT[n, r, l] = D[n, 4l, 4r, 1] * yscale, dxT[n, r, l] =
-// D[n, 4l, 4r, 0].
+// strides at a power-of-two lattice stride s: dyT[n, r, l] = D[n, s l, s r,
+// 1] * yscale (yscale = 1/s, exact), dxT[n, r, l] = D[n, s l, s r, 0].
+// STRIDE is s where it is a compile-time case (the bank's kCoarse), 0 where
+// it is read from `stride`.
+template <int STRIDE>
 struct CoarseSrc {
   const float* D;
   long long sN, sH, sW, sC;
   float yscale;
+  int stride;
 
   __device__ __forceinline__ const float* at(int n, int l, int r) const {
-    return D + n * sN + (long long)(kCoarse * l) * sH +
-           (long long)(kCoarse * r) * sW;
+    const int s = STRIDE ? STRIDE : stride;
+    return D + n * sN + (long long)(s * l) * sH + (long long)(s * r) * sW;
   }
   __device__ __forceinline__ float dy(const float* p) const {
     return __fmul_rn(__ldg(p + sC), yscale);
@@ -233,31 +253,51 @@ __device__ __forceinline__ void fine_block(float c00, float c01, float c10,
 
 // The block minimum of a solve step across the kSolveSplit CTAs of a
 // cluster: each CTA pushes its own minimum into every peer's slot for the
-// step (red.async, completing 4 bytes on the peer's mbarrier, the two
-// barriers taking the steps by parity, so a peer at most one step ahead
-// never lands in the wrong phase) and waits only for the pushes into its
-// own slot. Steps 1, 2, 3, ... use barrier it & 1 for the ((it - 1) >> 1)-th
+// step (red.async, completing 4 bytes on the peer's mbarrier) and waits
+// only for the pushes into its own slot. The two barriers take the steps
+// by parity, so a peer at most one step ahead never lands in the wrong
+// phase: steps 1, 2, 3, ... use barrier it & 1 for the ((it - 1) >> 1)-th
 // time, so that is the phase each waits for. No CTA leaves while a peer may
 // still push into it: each waits for all of them at every step.
-struct StepExchange {
+//
+// StepSlots, the bank's case (stride 4, fewer than kSolveMaxSteps steps),
+// gives each step a slot of its own. StepKeys takes any other stride or
+// step count: two slots by parity that are never reset. A step writes
+// key(it, m) = (tag << 16) | (0xFFFF - m), tag = (it + 1) >> 1, with max,
+// so its keys outrank the ones its slot held two steps before, and the
+// largest key is the smallest m; a peer can push a slot's next step only
+// after this CTA has pushed the step between, which it does after reading
+// the slot. That holds up to kSolveMaxIter steps (16-bit tags) and
+// lattices under 65536 lanes. (StepKeys on the bank's case too cost 1.5%
+// of a call at 3072^2 and 15% at 4608^2, where the wide solve took more
+// registers; PERF.md.)
+constexpr int kSolveMaxSteps = 16;
+constexpr int kSolveMaxIter = 2 * 0xFFFF;
+
+// Every CTA of the cluster has started and set its slots and barriers
+// before any pushes into them (a CTA barrier alone without `exchange`).
+__device__ __forceinline__ void exchange_init(uint64_t* bar, bool exchange,
+                                              int tid) {
+  if (exchange && tid < 2) mbar_init(&bar[tid], 1);
+  if (exchange) {
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    cooperative_groups::this_cluster().sync();
+  } else {
+    __syncthreads();
+  }
+}
+
+struct StepSlots {
   int cta_min[kSolveMaxSteps];    // this CTA's minimum a step
   int block_min[kSolveMaxSteps];  // the block's, pushed by every CTA
   uint64_t bar[2];                // steps by parity
 
-  // Every CTA of the cluster has started and set its slots and barriers
-  // before any pushes into them (a CTA barrier alone without `exchange`).
   __device__ void init(bool exchange, int tid) {
     if (tid < kSolveMaxSteps) {
       cta_min[tid] = INT_MAX;
       block_min[tid] = INT_MAX;
     }
-    if (exchange && tid < 2) mbar_init(&bar[tid], 1);
-    if (exchange) {
-      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-      cooperative_groups::this_cluster().sync();
-    } else {
-      __syncthreads();
-    }
+    exchange_init(bar, exchange, tid);
   }
   // The block's smallest of every thread's `m` at step `it` (1 or more);
   // every thread of the CTA calls it.
@@ -275,6 +315,41 @@ struct StepExchange {
   }
 };
 
+struct StepKeys {
+  unsigned cta_key[2];    // this CTA's key a step, by parity
+  unsigned block_key[2];  // the block's, pushed by every CTA
+  uint64_t bar[2];        // steps by parity
+
+  __device__ void init(bool exchange, int tid) {
+    if (tid < 2) {
+      cta_key[tid] = 0u;
+      block_key[tid] = 0u;
+    }
+    exchange_init(bar, exchange, tid);
+  }
+  // As StepSlots::reduce; `m` a lane index, or INT_MAX for none.
+  __device__ int reduce(int m, int it, int tid) {
+    m = __reduce_min_sync(0xffffffffu, m);
+    const int p = it & 1;
+    const unsigned key =
+        ((unsigned)((it + 1) >> 1) << 16) | (unsigned)(0xFFFF - min(m, 0xFFFF));
+    if ((tid & 31) == 0) atomicMax(&cta_key[p], key);
+    __syncthreads();
+    if (tid == 0) mbar_arrive_expect(&bar[p], 4 * kSolveSplit);
+    if (tid < kSolveSplit)
+      red_max_async(peer_addr(smem_addr(&block_key[p]), tid), cta_key[p],
+                    peer_addr(smem_addr(&bar[p]), tid));
+    mbar_wait(&bar[p], ((it - 1) >> 1) & 1);
+    return 0xFFFF - (int)(block_key[p] & 0xFFFFu);
+  }
+};
+
+// STRIDE = kCoarse is the bank's case, whose launches take fewer than
+// kSolveMaxSteps steps; STRIDE = 0 takes any stride and step count.
+template <int STRIDE>
+using StepExchange =
+    std::conditional_t<STRIDE == kCoarse, StepSlots, StepKeys>;
+
 // gd[n, w, x] = dxT[n, x, y*] with w = y* + dyT[n, x, y*]: n_iter
 // fixed-point lerps d <- dyT(w - d) along each coarse row x, then dxT(w - d);
 // gd is (N, Lv, R), untransposed. Block (128, rows of threads); grid
@@ -286,12 +361,12 @@ struct StepExchange {
 // Lv are not computed (each lane's steps are its own); where it can, they
 // are, for the block minimum.
 // Dynamic shared memory: 2 * rows_cta * kSolveStride floats.
-template <int ITEMS>
+template <int ITEMS, int STRIDE>
 __global__ void __launch_bounds__(kSolveMaxThreads)
-    coarse_solve_kernel(CoarseSrc src, float* __restrict__ gd, int R, int Lv,
-                        int rows_cta, int n_iter, int scan) {
+    coarse_solve_kernel(CoarseSrc<STRIDE> src, float* __restrict__ gd, int R,
+                        int Lv, int rows_cta, int n_iter, int scan) {
   extern __shared__ float s_src[];
-  __shared__ StepExchange xs;
+  __shared__ StepExchange<STRIDE> xs;
   const int n_src = (Lv + kLanes - 1) / kLanes;
   const bool exchange = n_src > scan;   // else every band starts at tile 0
   const int blk = blockIdx.x / kSolveSplit;
@@ -456,11 +531,12 @@ __global__ void __launch_bounds__(kSolveMaxThreads)
 // computed). A CTA's threads walk its (lane, row) positions, consecutive
 // threads on consecutive rows, whose dbuf entries and D samples lie
 // close. Grid and clusters as coarse_solve_kernel's; block kWideThreads.
+template <int STRIDE>
 __global__ void __launch_bounds__(kWideThreads)
-    coarse_solve_wide_kernel(CoarseSrc src, float* __restrict__ dbuf,
+    coarse_solve_wide_kernel(CoarseSrc<STRIDE> src, float* __restrict__ dbuf,
                              float* __restrict__ gd, int R, int Lv,
                              int rows_cta, int n_iter, int scan) {
-  __shared__ StepExchange xs;
+  __shared__ StepExchange<STRIDE> xs;
   const int n_src = (Lv + kLanes - 1) / kLanes;
   const bool exchange = n_src > scan;
   const int Ld = exchange ? n_src * kLanes : Lv;
@@ -536,6 +612,32 @@ __global__ void __launch_bounds__(kLanes)
              __ldg(g + (size_t)i1 * w + j), __ldg(g + (size_t)i1 * w + j1), i, j,
              h, w, out + ((size_t)n * 4 * h + (size_t)4 * i) * W4 + (size_t)4 * j,
              W4);
+}
+
+// out (N, 2h, 2w) = _upsample2(gd) for gd (N, h, w), the other strides'
+// step: rows first (node 2i = gd[i], 2i + 1 the rounded midpoint of rows i
+// and min(i + 1, h - 1)), then columns likewise; one thread per coarse node
+// writes its 2x2 block, two float2 stores. Grid (ceil(w / 128), h, N).
+__global__ void __launch_bounds__(kLanes)
+    upsample2_kernel(const float* __restrict__ gd, float* __restrict__ out,
+                     int h, int w) {
+  const int j = blockIdx.x * kLanes + threadIdx.x;
+  const int i = blockIdx.y;
+  const int n = blockIdx.z;
+  if (j >= w) return;
+  const float* g = gd + (size_t)n * h * w;
+  const int i1 = min(i + 1, h - 1);
+  const int j1 = min(j + 1, w - 1);
+  const float c00 = __ldg(g + (size_t)i * w + j);
+  const float c01 = __ldg(g + (size_t)i * w + j1);
+  // The row stage at rows 2i, 2i + 1 and columns j, j1; the last row and
+  // column take the midpoint with themselves, as the replicated node does.
+  const float r10 = mid(c00, __ldg(g + (size_t)i1 * w + j));
+  const float r11 = mid(c01, __ldg(g + (size_t)i1 * w + j1));
+  const size_t W2 = (size_t)2 * w;
+  float* o = out + ((size_t)n * 2 * h + (size_t)2 * i) * W2 + (size_t)2 * j;
+  *reinterpret_cast<float2*>(o) = make_float2(c00, mid(c00, c01));
+  *reinterpret_cast<float2*>(o + W2) = make_float2(r10, mid(r10, r11));
 }
 
 __global__ void noop_kernel() {}
@@ -683,45 +785,79 @@ int launch_solve(void (*kernel)(Params...), int N, int n_src, bool exchange,
 
 }  // namespace
 
+// The floats of scratch that flowgen_coarse_solve needs for a solve of N
+// fields, Lv lanes by R rows, with bands of `scan` tiles: N * Ld * R where
+// the slab takes the wide kernel (more than kSolveMaxRows rows a CTA; Ld:
+// Lv rounded up to 128 lanes where the band can move, else Lv), else 0.
+extern "C" long long flowgen_coarse_scratch_floats(int N, int Lv, int R,
+                                                   int scan) {
+  using namespace flowgen;
+  const int rows_cta = (R + kSolveSplit - 1) / kSolveSplit;
+  if (rows_cta <= kSolveMaxRows) return 0;
+  const int n_src = (Lv + kLanes - 1) / kLanes;
+  const long long Ld = n_src > scan ? (long long)n_src * kLanes : Lv;
+  return (long long)N * Ld * R;
+}
+
 // The column-inverse solve of D (N, Hd, Wd, 2), element strides sN, sH, sW,
-// sC, on its 4x-coarse lattice: gd (N, Lv = Hd / 4, R = Wd / 4). Slabs of
-// more than kSolveMaxRows rows (Wd over 4096) take the wide kernel, which
-// keeps its iterate in `scratch`: N * Ld * R floats (Ld: Lv rounded up to
-// 128 lanes where the band can move, else Lv), unused otherwise.
+// sC, on its lattice of power-of-two stride `stride`: gd (N, Lv = Hd /
+// stride, R = Wd / stride), n_iter fixed-point steps (at most
+// kSolveMaxIter), Lv under 65536. The bank's case (stride 4, fewer than
+// kSolveMaxSteps steps) is a compile-time case; any other reads the stride
+// at run time and exchanges through StepKeys. Slabs of more than
+// kSolveMaxRows rows (R over 1024) take the wide kernel, which keeps its
+// iterate in `scratch`, scratch_floats long, apart from gd: at least
+// flowgen_coarse_scratch_floats(N, Lv, R, scan) floats, or the call fails.
 extern "C" int flowgen_coarse_solve(const float* D, long long sN, long long sH,
-                                    long long sW, long long sC, float yscale,
-                                    float* gd, float* scratch, int N, int Lv,
+                                    long long sW, long long sC, int stride,
+                                    float* gd, float* scratch,
+                                    long long scratch_floats, int N, int Lv,
                                     int R, int n_iter, int scan, void* stream) {
   using namespace flowgen;
-  if (N <= 0 || R <= 0 || Lv <= 0 || n_iter < 0 || n_iter >= kSolveMaxSteps ||
-      scan <= 0)
+  if (N <= 0 || R <= 0 || Lv <= 0 || Lv > 0xFFFF || n_iter < 0 ||
+      n_iter > kSolveMaxIter || scan <= 0 || stride <= 0 ||
+      (stride & (stride - 1)) ||
+      scratch_floats < flowgen_coarse_scratch_floats(N, Lv, R, scan))
     return (int)cudaErrorInvalidValue;
   const int rows_cta = (R + kSolveSplit - 1) / kSolveSplit;
   const int n_src = (Lv + kLanes - 1) / kLanes;
   const bool exchange = n_src > scan;
-  const CoarseSrc src = {D, sN, sH, sW, sC, yscale};
+  const float yscale = 1.0f / (float)stride;   // exact: a power of two
   cudaStream_t s = (cudaStream_t)stream;
-  if (rows_cta > kSolveMaxRows)
-    return launch_solve(coarse_solve_wide_kernel, N, n_src, exchange,
-                        dim3(kWideThreads), 0, s, src, scratch, gd, R, Lv,
-                        rows_cta, n_iter, scan);
-  int rt = kSolveRows;
-  while (rt * kSolveMaxItems < rows_cta) rt *= 2;
-  const int items = (rows_cta + rt - 1) / rt;
-  const int smem = 2 * rows_cta * kSolveStride * (int)sizeof(float);
-  auto solve = [&](auto kernel) {
-    return launch_solve(kernel, N, n_src, exchange, dim3(kLanes, rt), smem, s,
-                        src, gd, R, Lv, rows_cta, n_iter, scan);
+  auto run = [&](auto src, auto wide, auto k2, auto k3, auto k4, auto k6,
+                 auto k8) {
+    if (rows_cta > kSolveMaxRows)
+      return launch_solve(wide, N, n_src, exchange, dim3(kWideThreads), 0, s,
+                          src, scratch, gd, R, Lv, rows_cta, n_iter, scan);
+    int rt = kSolveRows;
+    while (rt * kSolveMaxItems < rows_cta) rt *= 2;
+    const int items = (rows_cta + rt - 1) / rt;
+    const int smem = 2 * rows_cta * kSolveStride * (int)sizeof(float);
+    auto solve = [&](auto kernel) {
+      return launch_solve(kernel, N, n_src, exchange, dim3(kLanes, rt), smem,
+                          s, src, gd, R, Lv, rows_cta, n_iter, scan);
+    };
+    switch (items) {
+      case 1:
+      case 2: return solve(k2);
+      case 3: return solve(k3);
+      case 4: return solve(k4);
+      case 5:
+      case 6: return solve(k6);
+      default: return solve(k8);
+    }
   };
-  switch (items) {
-    case 1:
-    case 2: return solve(coarse_solve_kernel<2>);
-    case 3: return solve(coarse_solve_kernel<3>);
-    case 4: return solve(coarse_solve_kernel<4>);
-    case 5:
-    case 6: return solve(coarse_solve_kernel<6>);
-    default: return solve(coarse_solve_kernel<8>);
+  if (stride == kCoarse && n_iter < kSolveMaxSteps) {
+    constexpr int S = kCoarse;
+    return run(CoarseSrc<S>{D, sN, sH, sW, sC, yscale, stride},
+               coarse_solve_wide_kernel<S>, coarse_solve_kernel<2, S>,
+               coarse_solve_kernel<3, S>, coarse_solve_kernel<4, S>,
+               coarse_solve_kernel<6, S>, coarse_solve_kernel<8, S>);
   }
+  return run(CoarseSrc<0>{D, sN, sH, sW, sC, yscale, stride},
+             coarse_solve_wide_kernel<0>, coarse_solve_kernel<2, 0>,
+             coarse_solve_kernel<3, 0>, coarse_solve_kernel<4, 0>,
+             coarse_solve_kernel<6, 0>, coarse_solve_kernel<8, 0>);
 }
 
 // out (N, 4h, 4w) = two x2 upsamples of gd (N, h, w), both contiguous.
@@ -732,6 +868,17 @@ extern "C" int flowgen_upsample4(const float* gd, float* out, int N, int h,
     return (int)cudaErrorInvalidValue;
   const dim3 grid((w + kLanes - 1) / kLanes, h, N);
   upsample4_kernel<<<grid, kLanes, 0, (cudaStream_t)stream>>>(gd, out, h, w);
+  return (int)cudaGetLastError();
+}
+
+// out (N, 2h, 2w) = one x2 upsample of gd (N, h, w), both contiguous.
+extern "C" int flowgen_upsample2(const float* gd, float* out, int N, int h,
+                                 int w, void* stream) {
+  using namespace flowgen;
+  if (N <= 0 || h <= 0 || w <= 0 || h > 65535 || N > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((w + kLanes - 1) / kLanes, h, N);
+  upsample2_kernel<<<grid, kLanes, 0, (cudaStream_t)stream>>>(gd, out, h, w);
   return (int)cudaGetLastError();
 }
 

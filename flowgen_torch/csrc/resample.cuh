@@ -101,11 +101,15 @@ __device__ __forceinline__ int pack3(float r, float g, float b) {
   return ((int)r << 16) | ((int)g << 8) | (int)b;
 }
 
-// Pass 1 at absolute slab row w: the horizontal lerp at u.
+// Pass 1 at absolute slab row w: the horizontal lerp at u. BANDED (the
+// standalone resampler) reads 0 for a tap outside [lo, hi), as the TPU
+// kernel's banded scan does; the scene kernel's calls are unbanded.
+template <bool BANDED = false>
 __device__ __forceinline__ void pass1_row(const int* __restrict__ slab,
                                           int SW, int w, int c0, int CW,
                                           const float co[6], float xf,
-                                          float out[3]) {
+                                          float out[3], int lo = 0,
+                                          int hi = 0) {
   const float wg = (float)w;
   const float u = clipf((co[0] * xf + co[1] * wg) + co[2], 0.0f,
                         (float)(CW - 1));
@@ -115,8 +119,13 @@ __device__ __forceinline__ void pass1_row(const int* __restrict__ slab,
   const int u1 = min(u0 + 1, CW - 1);
   const int* row = slab + (size_t)w * SW + c0;
   float a0[3], a1[3];
-  unpack3(__ldg(row + u0), a0);
-  unpack3(__ldg(row + u1), a1);
+  if constexpr (BANDED) {
+    unpack3(u0 >= lo && u0 < hi ? __ldg(row + u0) : 0, a0);
+    unpack3(u1 >= lo && u1 < hi ? __ldg(row + u1) : 0, a1);
+  } else {
+    unpack3(__ldg(row + u0), a0);
+    unpack3(__ldg(row + u1), a1);
+  }
 #pragma unroll
   for (int ch = 0; ch < 3; ++ch) out[ch] = a0[ch] + (a1[ch] - a0[ch]) * fx;
 }

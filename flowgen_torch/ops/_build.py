@@ -133,12 +133,16 @@ def load_fields_library():
     lib = _load("flowgen_fields")
     if lib.flowgen_coarse_solve.argtypes is None:
         lib.flowgen_coarse_solve.argtypes = (
-            [ctypes.c_void_p] + [ctypes.c_longlong] * 4 + [ctypes.c_float]
-            + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+            [ctypes.c_void_p] + [ctypes.c_longlong] * 4 + [ctypes.c_int]
+            + [ctypes.c_void_p] * 2 + [ctypes.c_longlong]
+            + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         lib.flowgen_coarse_solve.restype = ctypes.c_int
-        lib.flowgen_upsample4.argtypes = [ctypes.c_void_p] * 2 + [
-            ctypes.c_int] * 3 + [ctypes.c_void_p]
-        lib.flowgen_upsample4.restype = ctypes.c_int
+        lib.flowgen_coarse_scratch_floats.argtypes = [ctypes.c_int] * 4
+        lib.flowgen_coarse_scratch_floats.restype = ctypes.c_longlong
+        for up in (lib.flowgen_upsample4, lib.flowgen_upsample2):
+            up.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [
+                ctypes.c_void_p]
+            up.restype = ctypes.c_int
         lib.flowgen_noop.argtypes = [ctypes.c_void_p]
         lib.flowgen_noop.restype = ctypes.c_int
         lib.flowgen_hwarp_rows.argtypes = [ctypes.c_void_p] * 3 + [
@@ -164,7 +168,7 @@ def load_resample_library():
     fn = lib.flowgen_affine_resample
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] + [ctypes.c_float] * 6 + [
-            ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+            ctypes.c_void_p] + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 

@@ -90,6 +90,24 @@ def pixel_grid(width, height, center_offset=0.5, device="cpu"):
     return px, py
 
 
+def halfplane_cell_coverage(d, nx, ny):
+    """Exact area of the unit pixel cell inside the half-plane ``{p : n .
+    (p - centre) <= -d}``: ``d`` the signed distance of the cell centre
+    from the boundary line, positive outside, (nx, ny) the unit outward
+    normal. Closed form, piecewise quadratic in d."""
+    a1 = nx.abs()
+    b1 = ny.abs()
+    lo = torch.minimum(a1, b1)
+    hi = torch.maximum(a1, b1)
+    t = _clip((a1 + b1) * 0.5 - d, torch.zeros_like(lo), lo + hi)
+    denom = torch.clamp(2.0 * lo * hi, min=f32(1e-9))
+    quad_lo = div(t * t, denom)
+    lin = div(t - 0.5 * lo, torch.clamp(hi, min=f32(1e-9)))
+    quad_hi = 1.0 - div((hi + lo - t) * (hi + lo - t), denom)
+    aa = torch.where(t <= lo, quad_lo, torch.where(t >= hi, quad_hi, lin))
+    return torch.clamp(aa, 0.0, 1.0)
+
+
 def _sector_center_dir(ux, uy, steps: int):
     """Unit direction of the centre of the ``2*pi/steps`` sector holding
     (ux, uy): quadrant fold plus a binary search over power-of-two sector

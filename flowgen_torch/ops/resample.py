@@ -290,27 +290,94 @@ def _f32_coeffs(transform):
     return (a - B * c, B, e - B * f, c, d, f)
 
 
+def _rows_need(coeffs, w0: int, x0: int, y0: int, wh: int, ww: int,
+               P: int) -> float:
+    """The source rows pass 2 can read for this affine (the JAX kernel's
+    ``_pass1_rows_needed``): the corners' largest v less w0, plus 3,
+    clipped to [1, P]. Pass-1 chunks from there on are not computed."""
+    _, _, _, c, d, f = coeffs
+    xs = (F32(x0), F32(x0) + F32(ww - 1))
+    ys = (F32(y0), F32(y0) + F32(wh - 1))
+    vmax = max(c * xx + d * yy + f for xx in xs for yy in ys)
+    return float(min(max(vmax - F32(w0) + F32(3.0), F32(1.0)), F32(P)))
+
+
+def resample_rows_banded(rows: torch.Tensor, w0: int, coeffs, x0: int,
+                         y0: int, wh: int, ww: int, x_tiles_scan: int,
+                         y_tiles_scan: int):
+    """The JAX package's ``resample_rows_in_kernel`` on packed-RGB rows
+    (P, SW) holding slab rows [w0, w0+P), its taps read through the banded
+    rule (:func:`banded_taps`): pass 1 over (128-row chunk, 128-lane tile)
+    blocks, each with a band of ``x_tiles_scan`` slab tiles, chunks past
+    the rows pass 2 can read left out; pass 2 over (128-column, 128-row)
+    blocks of the transposed pass-1 planes (rows padded to 128, as its
+    scratch), each with a band of ``y_tiles_scan`` tiles. A tap outside its
+    band reads 0. Inside the bands this is :func:`resample_rows`. Returns
+    three (wh, ww) planes."""
+    P, SW = rows.shape
+    dev = rows.device
+    A, B, C, c, d, f = (float(v) for v in coeffs)
+    w0f = float(F32(w0))
+    need = _rows_need(coeffs, w0, x0, y0, wh, ww, P)
+    Pp = _round_up(P, 128)
+    xg = torch.arange(ww, dtype=torch.float32, device=dev) + float(x0)
+    t1 = [torch.zeros((ww, Pp), dtype=torch.float32, device=dev)
+          for _ in range(3)]
+    for r0 in range(0, P, PASS1_CHUNK):
+        if not float(r0) < need:
+            continue
+        rc = min(PASS1_CHUNK, P - r0)
+        wg = (torch.arange(rc, dtype=torch.float32, device=dev)
+              + float(F32(w0f + r0)))[:, None]
+        u = torch.clamp(A * xg[None, :] + B * wg + C, 0.0, float(SW - 1))
+        p0, p1, fx, _ = banded_taps(rows[r0 : r0 + rc], u, rc, x_tiles_scan,
+                                    SW)
+        for ch, (a0, a1) in enumerate(zip(unpack_rgb(p0), unpack_rgb(p1))):
+            t1[ch][:, r0 : r0 + rc] = (a0 + (a1 - a0) * fx).t()
+    whp = _round_up(wh, 128)
+    xchunk = 128 if ww >= 128 else ww
+    yg = torch.arange(whp, dtype=torch.float32, device=dev) + float(y0)
+    v = torch.clamp(c * xg[:, None] + d * yg[None, :] + f - w0f, 0.0,
+                    float(P - 1))
+    return tuple(banded_lerp(t, v, xchunk, y_tiles_scan, P,
+                             clamp_oob=True)[:, :wh].t() for t in t1)
+
+
 def affine_resample_plain(slab, transform, x0: int, y0: int, *, wh: int,
-                          ww: int, P: int):
-    """The plain version of :func:`affine_resample`: the staged two-pass
-    resample of the whole slab width (:func:`two_pass_window`)."""
-    r, g, b = two_pass_window(slab, _f32_coeffs(transform), int(x0), int(y0),
-                              wh, ww, P, slab.shape[1])
+                          ww: int, P: int, x_tiles_scan: int = 4,
+                          y_tiles_scan: int = 4):
+    """The plain version of :func:`affine_resample`: the row block of
+    ``pass1_row_start`` over the whole slab width, resampled by
+    :func:`resample_rows_banded`."""
+    SH, _ = slab.shape
+    co = _f32_coeffs(transform)
+    w0 = pass1_row_start(co, int(x0), int(y0), wh, ww, P, SH)
+    r, g, b = resample_rows_banded(slab[w0 : w0 + P], w0, co, int(x0),
+                                   int(y0), wh, ww, x_tiles_scan,
+                                   y_tiles_scan)
     return torch.stack([r, g, b], -1)
 
 
 def affine_resample(slab, transform, x0: int, y0: int, *, wh: int, ww: int,
-                    P: int):
+                    P: int, x_tiles_scan: int = 4, y_tiles_scan: int = 4):
     """Resample a (wh, ww) window at output origin (x0, y0) through an
     output -> slab affine ``transform`` (2, 3) from a packed padded slab
-    (:func:`pack_padded_slab`), staging ``P`` source rows. Returns (wh, ww,
-    3) float32. A CUDA slab launches ``csrc/resample.cu:
-    affine_resample_kernel`` (counted in ``affine_resample.launches``); a
-    CPU slab runs :func:`affine_resample_plain`. No path of the generator
-    calls it, as in the JAX package."""
+    (:func:`pack_padded_slab`), staging ``P`` source rows, each pass's taps
+    read through bands of ``x_tiles_scan`` and ``y_tiles_scan`` 128-lane
+    tiles as in the JAX package's ``affine_resample_pallas`` (a tap outside
+    its band reads 0; :func:`resample_rows_banded`). ``ww`` is a multiple of
+    128, as the JAX kernel requires. Returns (wh, ww, 3) float32. A CUDA
+    slab launches ``csrc/resample.cu:affine_resample_kernel`` (counted in
+    ``affine_resample.launches``); a CPU slab runs
+    :func:`affine_resample_plain`. No path of the generator calls it, as
+    in the JAX package."""
+    if ww % 128 or x_tiles_scan < 1 or y_tiles_scan < 1:
+        raise ValueError("affine_resample: ww must be a multiple of 128 and "
+                         "the band widths at least 1")
     if slab.device.type == "cpu":
         return affine_resample_plain(slab, transform, x0, y0, wh=wh, ww=ww,
-                                     P=P)
+                                     P=P, x_tiles_scan=x_tiles_scan,
+                                     y_tiles_scan=y_tiles_scan)
     if (slab.device.type != "cuda" or slab.dtype != torch.int32
             or not slab.is_contiguous() or slab.dim() != 2):
         raise ValueError("affine_resample: expects a contiguous (SH, SW) int32 "
@@ -325,6 +392,7 @@ def affine_resample(slab, transform, x0: int, y0: int, *, wh: int, ww: int,
         ctypes.c_void_p(slab.data_ptr()),
         *(float(c) for c in _f32_coeffs(transform)),
         ctypes.c_void_p(out.data_ptr()), SH, SW, int(x0), int(y0), wh, ww, P,
+        x_tiles_scan, y_tiles_scan,
         ctypes.c_void_p(torch.cuda.current_stream(slab.device).cuda_stream))
     if err != 0:
         raise RuntimeError(f"affine_resample kernel launch failed: CUDA error {err}")

@@ -219,3 +219,56 @@ def randomized_crop_transform_native(src_h, src_w, out_h, out_w, angle_deg,
         return resize_t
     big = ((src_w >= out_w) & (src_h >= out_h))[..., None, None]
     return torch.where(big, crop_t, resize_t)
+
+
+# ---------------------------------------------------------------------------
+# The standalone warps: one image, one op at a time
+# ---------------------------------------------------------------------------
+
+
+def affine_warp(img, transform, px, py, wrap="reflect"):
+    """Backward warp ``out(p) = img(transform^-1 (p))`` of one image ``img``
+    (h, w, C) at pixel coordinates ``px``, ``py`` (any shape), as
+    getTransformedTexture (DataGenerator.cpp:168-231) inverts its matrix
+    for the destination -> source map. ``transform`` (2, 3). Returns px's
+    shape with a trailing channel axis."""
+    inv = affine.invert(torch.as_tensor(transform, dtype=torch.float32,
+                                        device=img.device))
+    sx, sy = affine.apply_xy(inv, px, py)
+    return sample_bilinear(img, sx, sy, wrap=wrap)
+
+
+def randomized_crop(src, out_h: int, out_w: int, angle_deg, zoom, shift_x,
+                    shift_y):
+    """Texture::getRandomizedCrop (DataGenerator.cpp:87-109) of one source
+    ``src`` (h, w, C) at least as large as the (out_h, out_w) output: the
+    shift -> rotate -> crop -> resize chain as one output -> source affine
+    (:func:`randomized_crop_transform`), one reflect-wrapped bilinear
+    gather. Returns (out_h, out_w, C) float32."""
+    dev = src.device
+    zoom = torch.as_tensor(zoom, dtype=torch.float32, device=dev)
+    t = randomized_crop_transform(
+        src.shape[0], src.shape[1], out_h, out_w,
+        torch.as_tensor(angle_deg, dtype=torch.float32, device=dev), zoom,
+        torch.as_tensor(shift_x, dtype=torch.float32, device=dev),
+        torch.as_tensor(shift_y, dtype=torch.float32, device=dev))
+    yy, xx = torch.meshgrid(
+        torch.arange(out_h, dtype=torch.float32, device=dev),
+        torch.arange(out_w, dtype=torch.float32, device=dev), indexing="ij")
+    sx, sy = affine.apply_xy(t, xx, yy)
+    return sample_bilinear(src.to(torch.float32), sx, sy, wrap="reflect")
+
+
+def warp_by_flow(img, iflow, wrap="zero"):
+    """applyWarpFieldToTexture (DataGenerator.cpp:237-252): ``out(x, y) =
+    img(x + iflow_x, y + iflow_y)``, zero outside (``wrap``), for one image
+    (h, w, C) and its inverse flow (h, w, 2); a NaN flow entry (a flagged
+    bank pixel) counts as zero displacement."""
+    h, w = img.shape[0], img.shape[1]
+    yy, xx = torch.meshgrid(
+        torch.arange(h, dtype=torch.float32, device=img.device),
+        torch.arange(w, dtype=torch.float32, device=img.device),
+        indexing="ij")
+    dx = torch.nan_to_num(iflow[..., 0])
+    dy = torch.nan_to_num(iflow[..., 1])
+    return sample_bilinear(img, xx + dx, yy + dy, wrap=wrap)

@@ -23,6 +23,7 @@ import numpy as np
 
 from ..config import DataGenConfig
 from . import native
+from .native import load_images_native, native_loader_available
 
 
 class TextureDB(NamedTuple):

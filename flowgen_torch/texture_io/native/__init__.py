@@ -99,6 +99,15 @@ def _load():
     return _lib
 
 
+def native_loader_available() -> bool:
+    """True once the loader is built and loaded (the JAX package's
+    ``native_loader_available``). The port has no silent fallback: where
+    the JAX package returns False after a failed build, this raises with
+    the compiler's log (:func:`finish_build`), so it never returns False."""
+    _load()
+    return True
+
+
 def load_images_native(paths: List[str], out_h: int, out_w: int):
     """Threaded native decode of ``paths`` into a packed (N, out_h, out_w, 3)
     uint8 atlas. Returns ``(atlas, ok)``, ``ok`` a per-file bool mask: False

@@ -34,9 +34,11 @@ shardings, with its collectives written out.
 
 from __future__ import annotations
 
+import hashlib
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
@@ -231,6 +233,76 @@ def preprocess(batch, layout: str = "nhwc"):
 
 def create_model(width: int = 32) -> FlowNetS:
     return FlowNetS(width=width)
+
+
+def _flax_layer_names(model: FlowNetS):
+    """(flax name, module) of every layer in the order flax creates them:
+    the ten encoder convolutions, then the predictions (coarse to fine)
+    between the transposed convolutions."""
+    out = [(f"Conv_{i}", m) for i, m in enumerate(model.enc)]
+    out.append(("Conv_10", model.predict[0]))
+    for i, up in enumerate(model.up):
+        out += [(f"ConvTranspose_{i}", up), (f"Conv_{11 + i}",
+                                             model.predict[1 + i])]
+    return out
+
+
+def _flax_param_key(key, layer: str):
+    """The key flax hands a layer's first parameter (its kernel):
+    ``fold_in(key, h)``, h the first 4 bytes (big-endian) of the SHA-1 of
+    the layer's name and the parameter counter 1 (``flax/core/scope.py``:
+    ``Scope.make_rng`` and ``_fold_in_static``)."""
+    from ..random.streams import fold_in
+
+    digest = hashlib.sha1(layer.encode("utf-8") + bytes([1])).digest()
+    return fold_in(key, int.from_bytes(digest[:4], "big"))
+
+
+def _flax_lecun_normal(key, shape):
+    """flax's default kernel init on a (kh, kw, cin, cout) kernel:
+    ``variance_scaling(1, "fan_in", "truncated_normal")``, the JAX package's
+    arithmetic in float32: a uniform between erf(-2/sqrt2) and
+    erf(2/sqrt2), sqrt2 * erf_inv, the clamp to the open interval (-2, 2),
+    times sqrt(1/fan_in) / 0.87962566103423978."""
+    from .._fp import erf_inv
+    from ..random.streams import SQRT2, uniform
+
+    f = np.float32
+    lo, hi = (f(math.erf(float(f(v) / f(SQRT2)))) for v in (-2.0, 2.0))
+    z = SQRT2 * erf_inv(uniform(key, lo, hi, shape))
+    z = torch.clamp(z, float(np.nextafter(f(-2.0), f(np.inf))),
+                    float(np.nextafter(f(2.0), f(-np.inf))))
+    fan_in = int(np.prod(shape[:-1]))
+    std = f(np.sqrt(f(1.0 / fan_in))) / f(0.87962566103423978)
+    return z * float(std)
+
+
+def init_params(model: FlowNetS, key, height: int, width: int) -> dict:
+    """The JAX package's ``init_params(model, key, height, width)`` for
+    the same threefry ``key`` (a ``random/streams.py`` key, as
+    ``root_key(seed)`` is ``jax.random.key(seed)``), converted by
+    ``interop.flownet_params_from_flax``: a ``state_dict`` for ``model``
+    (``model.load_state_dict(init_params(...))``), on the CPU. Kernels are
+    flax's default init from each layer's own key, biases zero. ``height``
+    and ``width`` are the dummy input's size, which flax traces and which
+    sets no parameter; they must be positive. ``model`` is not changed."""
+    from ..interop import flownet_params_from_flax
+
+    if height <= 0 or width <= 0:
+        raise ValueError(f"init_params: size {height}x{width}")
+    key = key.cpu()
+    params = {}
+    for name, layer in _flax_layer_names(model):
+        w = layer.weight
+        if isinstance(layer, nn.ConvTranspose2d):
+            cin, cout, kh, kw = w.shape
+        else:
+            cout, cin, kh, kw = w.shape
+        kernel = _flax_lecun_normal(_flax_param_key(key, name),
+                                    (kh, kw, cin, cout))
+        params[name] = {"kernel": kernel.numpy(),
+                        "bias": np.zeros(cout, np.float32)}
+    return flownet_params_from_flax(params)
 
 
 def make_optimizer(model: nn.Module, lr: float = 1e-4):

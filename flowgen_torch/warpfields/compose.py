@@ -9,13 +9,24 @@ x-displacement at the row pass 2 will fetch. That column inverse is a
 per-column fixed point ``w = y + f_y(x, y)``, solved on a 4x-coarse lattice
 (``coarse_gdisp_batch``) and upsampled by interleaving.
 
+The JAX module's public functions and their counterparts here (the port
+keeps fields as (..., 2, S, S) planes x, y where the JAX package keeps
+(..., S, S, 2)): ``coarse_gdisp_batch`` and ``coarse_gdisp`` (any
+power-of-two stride and step count), ``displace_planes_batch``,
+``displace_planes``, ``displace_plane``, ``self_compose_pallas_batch`` ->
+``self_compose_batch``, ``self_compose_pallas`` -> ``self_compose``,
+``make_big_fields_pallas`` -> ``make_big_fields_keyed`` (and
+``make_big_fields`` on displacer grids), ``make_big_field_pallas`` ->
+``make_big_field``.
+
 Two wrappers of kernels, each with its plain PyTorch version beside it:
 
 * ``coarse_gdisp_batch`` (TPU kernel: ``pallas_fields.py:_coarse_solve_kernel``
   via ``coarse_gdisp_batch``) -> ``csrc/fields.cu:coarse_solve_kernel``
   (the solve, reading D's strided coarse samples in place) and
-  ``upsample4_kernel`` (the x4 upsample), each launch counted in
-  ``coarse_gdisp_batch.launches``;
+  ``upsample4_kernel`` (the x4 upsample of the bank's stride 4;
+  ``upsample2_kernel`` per octave at other strides), each launch counted
+  in ``coarse_gdisp_batch.launches``;
 * ``hwarp_rows`` -> ``csrc/fields.cu:hwarp_rows_kernel`` (TPU kernel:
   ``pallas_fields.py:_hwarp_kernel`` via ``_hwarp_rows``), counted in
   ``hwarp_rows.launches``.
@@ -41,9 +52,17 @@ from .fields import COMPOSE_ITERS, _upsample2
 COARSE = 4          # column-inverse lattice stride
 SOLVE_ITERS = 8     # fixed-point iterations
 HALF_ITERS = 16     # doublings on the half lattice (of COMPOSE_ITERS)
-# Band widths in 128-lane tiles for |disp| <= 64 px (on the coarse lattice:
-# 64 / COARSE lattice steps).
-COARSE_SCAN = int((2 * 64.0 / COARSE + 131) // 128) + 1
+SOLVE_MAX_ITER = 2 * 0xFFFF   # csrc/fields.cu:kSolveMaxIter (16-bit step tags)
+
+
+def coarse_scan(stride: int) -> int:
+    """Band width in 128-lane tiles of the solve at lattice ``stride``:
+    |disp| <= 64 px is 64 / stride lattice steps (the JAX kernel's rule)."""
+    return int((2 * 64.0 / stride + 131) // 128) + 1
+
+
+# Band widths in 128-lane tiles for |disp| <= 64 px.
+COARSE_SCAN = coarse_scan(COARSE)
 HWARP_SCAN = int((2 * 64.0 + 131) // 128) + 1
 
 _plain = False
@@ -90,33 +109,43 @@ def _check_cuda(name, *ts):
 # ---------------------------------------------------------------------------
 
 
-def _coarse_solve_plain(dyT, dxT, Lv):
-    """gdT[n, x, w] = dxT[n, x, y*] with w = y* + dyT[n, x, y*]: SOLVE_ITERS
+def _coarse_solve_plain(dyT, dxT, Lv, n_iter=SOLVE_ITERS, scan=COARSE_SCAN):
+    """gdT[n, x, w] = dxT[n, x, y*] with w = y* + dyT[n, x, y*]: ``n_iter``
     fixed-point lerps along the lanes, then the dxT lookup. Every
-    (all rows, 128 lanes) block of a field takes its own band."""
+    (all rows, 128 lanes) block of a field takes its own band of ``scan``
+    tiles."""
     N, R, Lp = dyT.shape
     wpos = torch.arange(Lp, dtype=torch.float32, device=dyT.device)
     wpos = wpos.expand(N * R, Lp)
     dy = dyT.reshape(N * R, Lp)
     d = torch.zeros_like(wpos)
-    for _ in range(SOLVE_ITERS):
-        d = banded_lerp(dy, wpos - d, R, COARSE_SCAN, Lv, clamp_oob=True)
-    out = banded_lerp(dxT.reshape(N * R, Lp), wpos - d, R, COARSE_SCAN, Lv,
+    for _ in range(n_iter):
+        d = banded_lerp(dy, wpos - d, R, scan, Lv, clamp_oob=True)
+    out = banded_lerp(dxT.reshape(N * R, Lp), wpos - d, R, scan, Lv,
                       clamp_oob=True)
     return out.reshape(N, R, Lp)
 
 
-def coarse_solve_inputs(D):
+def _check_stride(D, stride):
+    if stride <= 0 or stride & (stride - 1):
+        raise ValueError(f"coarse_gdisp_batch: stride {stride} is not a "
+                         "power of two")
+    if D.shape[1] % stride or D.shape[2] % stride:
+        raise ValueError(f"coarse_gdisp_batch: Hd and Wd must be multiples "
+                         f"of the stride {stride}; got {tuple(D.shape)}")
+
+
+def coarse_solve_inputs(D, stride=COARSE):
     """The solve's inputs for displacement fields ``D`` (N, Hd, Wd, 2) in
-    pixels (any strides): the COARSE-strided y and x planes, transposed,
+    pixels (any strides): the ``stride``-strided y and x planes, transposed,
     scaled to lattice units (y only) and zero-padded to 128 lanes, ``(dyT,
-    dxT)`` (N, Wd/COARSE, Lp); and ``Lv`` = Hd/COARSE, the valid lanes."""
-    Hc = D.shape[1] // COARSE
-    Dc = D[:, ::COARSE, ::COARSE]
+    dxT)`` (N, Wd/stride, Lp); and ``Lv`` = Hd/stride, the valid lanes."""
+    Hc = D.shape[1] // stride
+    Dc = D[:, ::stride, ::stride]
     pad = (0, _round_up(Hc, 128) - Hc)
-    # * (1/COARSE): the stride is a power of two, so the product is exact.
+    # * (1/stride): the stride is a power of two, so the product is exact.
     dyT = torch.nn.functional.pad(
-        Dc[..., 1].transpose(1, 2) * (1.0 / COARSE), pad).contiguous()
+        Dc[..., 1].transpose(1, 2) * (1.0 / stride), pad).contiguous()
     dxT = torch.nn.functional.pad(Dc[..., 0].transpose(1, 2), pad).contiguous()
     return dyT, dxT, Hc
 
@@ -125,58 +154,95 @@ def _stream(t):
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def coarse_gdisp_plain(D):
+def coarse_gdisp_plain(D, stride=COARSE, n_iter=SOLVE_ITERS):
     """The plain version of :func:`coarse_gdisp_batch`: the solve on the
-    planes of :func:`coarse_solve_inputs`, then two ``_upsample2``."""
-    dyT, dxT, Hc = coarse_solve_inputs(D)
-    gd = _coarse_solve_plain(dyT, dxT, Hc)[..., :Hc].transpose(1, 2)
-    for _ in range(COARSE.bit_length() - 1):
+    planes of :func:`coarse_solve_inputs`, then log2(stride)
+    ``_upsample2``."""
+    _check_stride(D, stride)
+    dyT, dxT, Hc = coarse_solve_inputs(D, stride)
+    gd = _coarse_solve_plain(dyT, dxT, Hc, n_iter, coarse_scan(stride))
+    gd = gd[..., :Hc].transpose(1, 2)
+    for _ in range(stride.bit_length() - 1):
         gd = _upsample2(gd)
     return gd
 
 
-def coarse_gdisp_batch(D):
+def coarse_gdisp_batch(D, stride=COARSE, n_iter=SOLVE_ITERS):
     """Column-inverse-corrected pass-1 x-displacement of a batch of
     displacement fields ``D`` (N, Hd, Wd, 2) in pixels (any strides):
-    gdisp(x, w) = D_x(x, y*), w = y* + D_y(x, y*). Solved on the
-    COARSE-strided transposed lattice, then upsampled x2 per octave.
-    Returns (N, Hd, Wd) f32.
+    gdisp(x, w) = D_x(x, y*), w = y* + D_y(x, y*). Solved by ``n_iter``
+    fixed-point steps on the transposed lattice of power-of-two ``stride``
+    (a divisor of Hd and Wd), then upsampled x2 per octave. Returns (N, Hd,
+    Wd) f32: the JAX package's ``pallas_fields.coarse_gdisp_batch(D,
+    stride, n_iter)``, in the same layout.
 
     A CUDA ``D`` (float32) launches the solve (``coarse_solve_kernel``, or
-    ``coarse_solve_wide_kernel`` for Wd over 4096), which reads the solve's
-    planes straight from ``D`` and writes the coarse result (N, Hd/4,
-    Wd/4), then ``upsample4_kernel``; each launch counts in
-    ``coarse_gdisp_batch.launches``, and the two output allocations are its
-    only PyTorch calls (the wide solve keeps its iterate in the fine
-    output, which the upsample then overwrites). A CPU ``D`` runs
-    :func:`coarse_gdisp_plain`."""
+    ``coarse_solve_wide_kernel`` past 1024 coarse rows), which reads the
+    solve's planes straight from ``D`` and writes the coarse result (N,
+    Hd/stride, Wd/stride), then the upsample: ``upsample4_kernel`` at the
+    bank's stride 4, else log2(stride) launches of ``upsample2_kernel``
+    (none at stride 1, where the solve writes the output). Each launch
+    counts in ``coarse_gdisp_batch.launches``; the output allocations are
+    its only PyTorch calls (the wide solve keeps its iterate in the fine
+    output where it fits beside the coarse result, else in a buffer of the
+    size ``flowgen_coarse_scratch_floats`` gives). The kernels take at most
+    ``SOLVE_MAX_ITER`` steps and coarse lattices under 65536 rows. A CPU
+    ``D`` runs :func:`coarse_gdisp_plain`."""
+    _check_stride(D, stride)
     if _runs_plain("coarse_gdisp_batch", D):
-        return coarse_gdisp_plain(D)
+        return coarse_gdisp_plain(D, stride, n_iter)
     from ..ops._build import load_fields_library
 
     N, Hd, Wd, C = D.shape
-    if D.dtype != torch.float32 or C != 2 or Hd % COARSE or Wd % COARSE:
-        raise ValueError("coarse_gdisp_batch: expects float32 (N, Hd, Wd, 2) "
-                         f"with Hd and Wd multiples of {COARSE}")
-    Hc, Wc = Hd // COARSE, Wd // COARSE
-    gd = torch.empty((N, Hc, Wc), dtype=torch.float32, device=D.device)
-    out = torch.empty((N, Hd, Wd), dtype=torch.float32, device=D.device)
+    if D.dtype != torch.float32 or C != 2:
+        raise ValueError("coarse_gdisp_batch: expects float32 (N, Hd, Wd, 2)")
+    Hc, Wc = Hd // stride, Wd // stride
+    if not 0 <= n_iter <= SOLVE_MAX_ITER or Hc > 0xFFFF:
+        raise ValueError(f"coarse_gdisp_batch: the kernels take 0 to "
+                         f"{SOLVE_MAX_ITER} steps and under 65536 coarse "
+                         f"rows; got {n_iter} and {Hc}")
+    levels = stride.bit_length() - 1
+    dev = D.device
+    out = torch.empty((N, Hd, Wd), dtype=torch.float32, device=dev)
+    gd = (out if levels == 0 else
+          torch.empty((N, Hc, Wc), dtype=torch.float32, device=dev))
     lib = load_fields_library()
+    # The wide solve's iterate: in the fine output where it fits beside gd.
+    need = lib.flowgen_coarse_scratch_floats(N, Hc, Wc, coarse_scan(stride))
+    scratch = (out if need == 0 or (levels and need <= out.numel()) else
+               torch.empty(need, dtype=torch.float32, device=dev))
     stream = _stream(D)
     err = lib.flowgen_coarse_solve(
-        _ptr(D), *D.stride(), 1.0 / COARSE, _ptr(gd), _ptr(out), N, Hc, Wc,
-        SOLVE_ITERS, COARSE_SCAN, stream)
+        _ptr(D), *D.stride(), stride, _ptr(gd), _ptr(scratch), scratch.numel(),
+        N, Hc, Wc, n_iter, coarse_scan(stride), stream)
     if err != 0:
         raise RuntimeError(f"coarse_solve kernel launch failed: CUDA error {err}")
     coarse_gdisp_batch.launches += 1
-    err = lib.flowgen_upsample4(_ptr(gd), _ptr(out), N, Hc, Wc, stream)
-    if err != 0:
-        raise RuntimeError(f"upsample4 kernel launch failed: CUDA error {err}")
-    coarse_gdisp_batch.launches += 1
+    if levels == 2:
+        err = lib.flowgen_upsample4(_ptr(gd), _ptr(out), N, Hc, Wc, stream)
+        if err != 0:
+            raise RuntimeError(f"upsample4 kernel launch failed: CUDA error {err}")
+        coarse_gdisp_batch.launches += 1
+        return out
+    for k in range(levels):
+        h, w = Hc << k, Wc << k
+        dst = (out if k == levels - 1 else
+               torch.empty((N, 2 * h, 2 * w), dtype=torch.float32, device=dev))
+        err = lib.flowgen_upsample2(_ptr(gd), _ptr(dst), N, h, w, stream)
+        if err != 0:
+            raise RuntimeError(f"upsample2 kernel launch failed: CUDA error {err}")
+        coarse_gdisp_batch.launches += 1
+        gd = dst
     return out
 
 
 coarse_gdisp_batch.launches = 0
+
+
+def coarse_gdisp(D, stride=COARSE, n_iter=SOLVE_ITERS):
+    """:func:`coarse_gdisp_batch` of one field ``D`` (S, S, 2) (or (Hd, Wd,
+    2)): returns (Hd, Wd), as the JAX package's ``coarse_gdisp``."""
+    return coarse_gdisp_batch(D[None], stride, n_iter)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -286,17 +352,64 @@ def self_compose_batch(f, iters):
     return torch.where(flagged[:, None], torch.full_like(f, float("nan")), f)
 
 
-def make_big_fields(grid, inverse, size):
+def displace_planes(srcs, gd, vd):
+    """:func:`displace_planes_batch` of one field: ``srcs`` (C, S, S),
+    ``gd`` and ``vd`` (S, S). Returns (C, S, S), the JAX package's
+    ``displace_planes`` in the same layout."""
+    return displace_planes_batch(srcs[None], gd[None], vd[None])[0]
+
+
+def displace_plane(src, gd, vd):
+    """:func:`displace_planes` of one (S, S) plane, the JAX package's
+    ``displace_plane``."""
+    return displace_planes(src[None], gd, vd)[0]
+
+
+def self_compose(field, iters):
+    """:func:`self_compose_batch` of one field (2, S, S) planes x, y (the
+    JAX package's ``self_compose_pallas`` of an (S, S, 2) field is this of
+    ``field.permute(2, 0, 1)``, permuted back)."""
+    return self_compose_batch(field[None], iters)[0]
+
+
+def make_big_fields(grid, inverse, size, coarse_iters: int = HALF_ITERS):
     """Composed big fields of M directions (the JAX package's
-    ``make_big_fields_pallas``): elementary fields on the half lattice,
-    HALF_ITERS doublings there, x2 upsample, the remaining doublings at
-    full size, ``clamp_near_zeros``. ``grid`` leaves (M, N), ``inverse``
-    (M,) bool. Returns (M, 2, size, size) with NaN at flagged pixels."""
+    ``make_big_fields_pallas`` on grids): elementary fields on the half
+    lattice, ``coarse_iters`` doublings there, x2 upsample, the remaining
+    ``COMPOSE_ITERS - coarse_iters`` doublings at full size,
+    ``clamp_near_zeros``. ``grid`` leaves (M, N), ``inverse`` (M,) bool.
+    Returns (M, 2, size, size) with NaN at flagged pixels."""
     from .fields import clamp_near_zeros, elementary_field
 
     half = size // 2
     f_h = elementary_field(grid, half, inverse, stride=2.0) * 0.5
-    f_h = self_compose_batch(f_h, HALF_ITERS)
+    f_h = self_compose_batch(f_h, coarse_iters)
     f = 2.0 * _upsample2(torch.nan_to_num(f_h))
-    out = self_compose_batch(f, COMPOSE_ITERS - HALF_ITERS)
+    out = self_compose_batch(f, COMPOSE_ITERS - coarse_iters)
     return clamp_near_zeros(out)
+
+
+def make_big_fields_keyed(keys, size, coarse_iters: int = HALF_ITERS):
+    """The JAX package's ``make_big_fields_pallas(keys, size,
+    coarse_iters)``: each key's displacer grid (``fields.
+    sample_displacer_grid``), its flow and inverse flow composed together
+    through shared launches. ``keys``: threefry keys of
+    ``random/streams.py`` (a sequence, or a (F, 2) tensor). Returns (flow,
+    iflow), each (F, 2, size, size) planes x, y with NaN at flagged pixels
+    (the JAX layout (F, size, size, 2) is ``.permute(0, 2, 3, 1)``)."""
+    from .fields import sample_displacer_grid, stack_grids
+
+    grids, flags = [], []
+    for key in keys:
+        g = sample_displacer_grid(key, size)
+        grids += [g, g]
+        flags += [False, True]
+    out = make_big_fields(*stack_grids(grids, flags), size, coarse_iters)
+    return out[0::2], out[1::2]
+
+
+def make_big_field(key, size, coarse_iters: int = HALF_ITERS):
+    """One key's ``(flow, iflow)``, each (2, size, size): the JAX package's
+    ``make_big_field_pallas``."""
+    flow, iflow = make_big_fields_keyed([key], size, coarse_iters)
+    return flow[0], iflow[0]

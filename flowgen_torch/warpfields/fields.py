@@ -100,6 +100,23 @@ def sample_displacer_grid(key: torch.Tensor, size: int) -> DisplacerGrid:
     )
 
 
+def constant_support(x, y, factor=1.0):
+    """Supports::Constant (WarpFields.cpp:50-59): ``factor`` everywhere,
+    float32, in the broadcast shape of ``x`` and ``y``."""
+    shape = torch.broadcast_shapes(torch.as_tensor(x).shape,
+                                   torch.as_tensor(y).shape)
+    dev = x.device if torch.is_tensor(x) else (
+        y.device if torch.is_tensor(y) else "cpu")
+    return torch.full(shape, f32(factor), dtype=torch.float32, device=dev)
+
+
+def gaussian1d_support(x, y, cx, cy, sigma):
+    """Isotropic Gaussian, peak-normalised (the reference's
+    Supports::Gaussian1D), in detmath arithmetic."""
+    d2 = (x - cx) * (x - cx) + (y - cy) * (y - cy)
+    return det_exp(-det_div(d2, 2.0 * sigma * sigma))
+
+
 def gaussian2d_support(x, y, cx, cy, sigma_x, sigma_y, angle):
     """Anisotropic rotated Gaussian, peak-normalised (the reference's
     Supports::Gaussian2D), in detmath arithmetic."""

@@ -182,22 +182,19 @@ def make_warp_aux(bank: WarpBank, n_iter=None, coarse: int = 4,
     [gdisp, iflow_y] of the background's x2-upscaled field
     (:func:`bg_upscale`), the JAX package's ``(obj_aux, bg_aux)``.
     ``use_pallas``: True solves with ``compose.coarse_gdisp_batch`` (its
-    CUDA kernel on the card, its plain version on the CPU; 8 iterations at
-    stride 4 only), False with :func:`_gdisp_xla` (``n_iter`` default 4),
-    None follows the device as the JAX function follows the backend: the
-    kernel on the card, :func:`_gdisp_xla` on the CPU."""
+    CUDA kernels on the card, its plain version on the CPU; ``n_iter``
+    default 8), False with :func:`_gdisp_xla` (``n_iter`` default 4), both
+    at lattice stride ``coarse``; None follows the device as the JAX
+    function follows the backend: the kernel on the card, :func:`_gdisp_xla`
+    on the CPU."""
     iflow = torch.nan_to_num(bank.iflow)
     flow = torch.nan_to_num(bank.flow)
     D_bg = bg_upscale(iflow, BG_EY)
     if use_pallas is None:
         use_pallas = iflow.device.type == "cuda"
     if use_pallas:
-        if (n_iter or compose.SOLVE_ITERS) != compose.SOLVE_ITERS or (
-                coarse != compose.COARSE):
-            raise ValueError(
-                f"coarse_gdisp_batch solves {compose.SOLVE_ITERS} iterations "
-                f"at stride {compose.COARSE}; got {n_iter} at {coarse}")
-        solve = compose.coarse_gdisp_batch
+        def solve(D):
+            return compose.coarse_gdisp_batch(D, coarse, n_iter or 8)
     else:
         def solve(D):
             return _gdisp_xla(D, n_iter or 4, coarse)
@@ -207,7 +204,8 @@ def make_warp_aux(bank: WarpBank, n_iter=None, coarse: int = 4,
     return WarpAux(obj, bg, bg_band_starts(bg))
 
 
-def make_bank_and_aux(root, step, cfg: DataGenConfig, impl=None):
+def make_bank_and_aux(root, step, cfg: DataGenConfig, impl=None,
+                      n_iter=None, coarse: int = 4):
     """Bank and scene-kernel warp planes from shared big fields, the
     hot-path producer: one column-inverse solve per big field replaces the
     per-crop solves (a crop's column is a sub-segment of its field's, and
@@ -217,8 +215,9 @@ def make_bank_and_aux(root, step, cfg: DataGenConfig, impl=None):
     x2-upscaled background field; bg_band the background warp's pass-1
     bands of those planes (``ops/scene.py:bg_band_starts``). ``impl``
     (default ``cfg.warp_bank_impl``) picks the stream of both the fields
-    and the solve: ``coarse_gdisp_batch`` for "pallas", :func:`_gdisp_xla`
-    with 4 iterations for "xla"."""
+    and the solve: ``coarse_gdisp_batch`` for "pallas" (``n_iter`` default
+    8), :func:`_gdisp_xla` for "xla" (default 4), both at lattice stride
+    ``coarse``."""
     impl = _stream_of(cfg, impl)
     W, H = cfg.width, cfg.height
     origins = crop_origins(W, H)
@@ -231,8 +230,8 @@ def make_bank_and_aux(root, step, cfg: DataGenConfig, impl=None):
                             torch.full_like(flows, OOB_SENTINEL), flows)
     big_f = torch.nan_to_num(flows)
     D = big_i.permute(0, 2, 3, 1)
-    gd_big = (compose.coarse_gdisp_batch(D) if impl == "pallas"
-              else _gdisp_xla(D, 4, 4))                     # (F, S, S)
+    gd_big = (compose.coarse_gdisp_batch(D, coarse, n_iter or 8)
+              if impl == "pallas" else _gdisp_xla(D, n_iter or 4, coarse))
     big4 = torch.stack([gd_big, big_i[:, 1], big_f[:, 0], big_f[:, 1]], dim=1)
     obj_aux = _crops(big4, cfg)                             # (N, 4, H, W)
 

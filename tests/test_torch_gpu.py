@@ -188,6 +188,58 @@ def test_coarse_gdisp_wide_matches_plain(hd, wd):
     assert torch.equal(gd.view(torch.int32), want.view(torch.int32))
 
 
+@pytest.mark.parametrize("s,stride,n_iter", [
+    (768, 1, 0), (768, 1, 20), (768, 2, 0), (768, 2, 20), (768, 8, 0),
+    (768, 8, 20), (3072, 8, 20), (1536, 1, 20), (1536, 4, 100)])
+def test_coarse_gdisp_strides_match_plain(s, stride, n_iter):
+    """coarse_gdisp_batch at lattice strides other than the bank's and at
+    step counts from 0 to 100, bit for bit against the plain version: at
+    768^2 the band moves at strides 1 and 2 (more lane tiles than the
+    scan), at 3072^2 at stride 8; 1536^2 at stride 1 takes the wide solve;
+    100 steps cycle the exchange's two slots 50 times. The upsample is
+    log2(stride) launches of upsample2_kernel (upsample4_kernel at 4)."""
+    from flowgen_torch.warpfields import compose
+
+    _need_card()
+    dev = torch.device("cuda")
+    D = _smooth_fields(2, s, 30.0, dev).permute(0, 2, 3, 1)
+    c0 = compose.coarse_gdisp_batch.launches
+    gd = compose.coarse_gdisp_batch(D, stride, n_iter)
+    torch.cuda.synchronize()
+    levels = stride.bit_length() - 1
+    assert compose.coarse_gdisp_batch.launches == c0 + 1 + (
+        1 if levels == 2 else levels)
+    want = compose.coarse_gdisp_batch(D.cpu(), stride, n_iter)
+    assert gd.shape == (2, s, s)
+    assert torch.equal(gd.cpu().view(torch.int32), want.view(torch.int32))
+
+
+def test_coarse_solve_refuses_short_scratch():
+    """The wide solve's scratch is sized by fields.cu alone: the solve
+    fails, launching nothing, on a scratch one float shorter than
+    flowgen_coarse_scratch_floats says, and runs on one of that size; the
+    narrow solve needs none."""
+    from flowgen_torch.ops._build import load_fields_library
+    from flowgen_torch.warpfields import compose
+
+    _need_card()
+    dev = torch.device("cuda")
+    lib = load_fields_library()
+    S, scan = 1536, compose.coarse_scan(1)
+    assert lib.flowgen_coarse_scratch_floats(1, S // 4, S // 4, scan) == 0
+    need = lib.flowgen_coarse_scratch_floats(1, S, S, scan)
+    assert need == S * S
+    D = torch.zeros((1, S, S, 2), dtype=torch.float32, device=dev)
+    gd = torch.empty((1, S, S), dtype=torch.float32, device=dev)
+    for n, ok in ((need - 1, False), (need, True)):
+        scratch = torch.empty(n, dtype=torch.float32, device=dev)
+        err = lib.flowgen_coarse_solve(
+            compose._ptr(D), *D.stride(), 1, compose._ptr(gd),
+            compose._ptr(scratch), n, 1, S, S, 8, scan, compose._stream(D))
+        assert (err == 0) == ok
+    torch.cuda.synchronize()
+
+
 def test_bank_cuda_matches_plain():
     from flowgen_torch.warpfields.generator import make_bank_and_aux
 
@@ -432,6 +484,27 @@ def test_affine_resample_kernel_matches_plain_on_frames(h, w, wh, ww):
                       [s, c, M + 0.5 * h - (s * cx + c * cy) - 7.6]])
     k = res.affine_resample(slab.cuda(), t, 0, 0, wh=wh, ww=ww, P=P)
     p = res.affine_resample_plain(slab, t, 0, 0, wh=wh, ww=ww, P=P)
+    assert torch.equal(k.cpu().view(torch.int32), p.view(torch.int32))
+
+
+@pytest.mark.parametrize("xscan,yscan", [(1, 1), (1, 4), (4, 1), (2, 2)])
+def test_affine_resample_band_widths_match_plain(xscan, yscan):
+    """Band widths too narrow for the affine (x_tiles_scan, y_tiles_scan
+    of 1 or 2 tiles at a 40 degree rotation): the taps outside a block's
+    band read 0 in the kernel as in the plain version, bit for bit."""
+    from flowgen_torch.ops import resample as res
+
+    _need_card()
+    img = torch.from_numpy(flowgen_torch.procedural_atlas(
+        1, height=192, width=256)[0])
+    slab = res.pack_padded_slab(img, 64, 64)
+    P = res.max_row_span(192, 256, 0.7, 1.35)
+    c, s = 1.3 * math.cos(0.7), 1.3 * math.sin(0.7)
+    t = torch.tensor([[c, -s, 200.0], [s, c, 30.0]])
+    kw = dict(wh=192, ww=256, P=P, x_tiles_scan=xscan, y_tiles_scan=yscan)
+    k = res.affine_resample(slab.cuda(), t, 16, 8, **kw)
+    p = res.affine_resample_plain(slab, t, 16, 8, **kw)
+    assert (p == 0).any()
     assert torch.equal(k.cpu().view(torch.int32), p.view(torch.int32))
 
 

@@ -56,9 +56,9 @@ def _breakdown(compose, fields):
 
         def solve(n_iter):
             err = lib.flowgen_coarse_solve(
-                compose._ptr(D), *D.stride(), 1.0 / compose.COARSE,
-                compose._ptr(gd), compose._ptr(fine), N, Hc, Wc, n_iter,
-                compose.COARSE_SCAN, compose._stream(D))
+                compose._ptr(D), *D.stride(), compose.COARSE,
+                compose._ptr(gd), compose._ptr(fine), fine.numel(), N, Hc,
+                Wc, n_iter, compose.COARSE_SCAN, compose._stream(D))
             if err:
                 cs.fail(f"coarse solve launch failed: CUDA error {err}")
 
