@@ -165,6 +165,15 @@ Phases (any failure exits non-zero before the final line):
      row's "launches" there are the kernel launches of the mode-9 main
      path's calls (phase 7) at any stride or step count but the bank's
      (4, 8), each call's recorded as it ran;
+ 24. bench_torch.py's cells in this process (bench_torch._bench_mode:
+     make_generate_fn, each step ended by one value read to the host and a
+     synchronize, after the cell's gc.collect, empty_cache and peak reset):
+     mode 7 at B=64 over 8 steps and mode 9 over 6 steps with the
+     pipelined rate, their legacy-form JSON lines (bench_torch.py MODE
+     BATCH), mode 9's per-step ms and the peaks, every kernel count at 0
+     before each cell and read after (the scene kernel once a step; the
+     bank kernels 36 and 34 an epoch built); then mode 13 with flow1 and
+     masks (phase 10's cell) the same way, its peak beside phase 10's;
 then one JSON line {"kernels": [...]} with seven rows, and last the line
 {"ok": true, "device": {...}}.
 
@@ -774,6 +783,7 @@ def run_main_path(cfg, atlas, card, n_steps=5, prof_steps=3, label=""):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
     reset_counts()
     gen = Generator(cfg, atlas=atlas, device="cuda")
     first = gen.retrieve_batch()
@@ -793,6 +803,7 @@ def run_main_path(cfg, atlas, card, n_steps=5, prof_steps=3, label=""):
         "ms_per_step": 1e3 * dt / n_steps,
         "samples_per_s": cfg.batch_size * n_steps / dt,
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "held_gib": held,
         "launches": counts, "dispatched": dispatched,
         "busy_ms": busy_ms / prof_steps, "wall_ms": wall_ms / prof_steps,
         "cuda_kernels": n_cuda / prof_steps,
@@ -842,7 +853,8 @@ def run_main_path(cfg, atlas, card, n_steps=5, prof_steps=3, label=""):
     label = f"mode {cfg.mode}, B={B}, {W}x{H}{label}"
     print(f"main path ({label}): {res['ms_per_step']:.2f} ms/step, "
           f"{res['samples_per_s']:.1f} samples/s over {n_steps} timed steps, "
-          f"peak memory {res['peak_gib']:.2f} GiB, kernel launches "
+          f"peak memory {res['peak_gib']:.2f} GiB ({held:.2f} held at the "
+          f"start), kernel launches "
           f"{json.dumps(counts)} for {dispatched} steps dispatched [{card}]")
     if busy_ms > 0:
         print(f"device busy ({label}, torch.profiler, {prof_steps} steps): "
@@ -1359,7 +1371,8 @@ def phase_mode13(card, dev):
     args, opts = scene_tables(cfg, 0, 0, slabs, dev)
     t = phase_scene_timing("mode 13", args, opts, card)
     return {"launches": res["launches"]["scene_render"], **t,
-            "max_abs_err": max(worst, g["max_abs_err"], t["max_abs_err"])}
+            "max_abs_err": max(worst, g["max_abs_err"], t["max_abs_err"]),
+            "peak_gib": res["peak_gib"], "held_gib": res["held_gib"]}
 
 
 # ---------------------------------------------------------------------------
@@ -3110,6 +3123,65 @@ def phase_coarse_strides(card, dev):
     return {"shapes": rows, "keyed_big_field_384_bits_differ": big_bits}, worst
 
 
+def bench_cell(label, *args, **kwargs):
+    """One bench_torch._bench_mode cell with every kernel count at 0
+    before it; returns the cell and the launches it made."""
+    import bench_torch
+
+    reset_counts()
+    cell = bench_torch._bench_mode(*args, device="cuda", **kwargs)
+    counts = read_counts()
+    if not (cell.rate > 0 and cell.spread >= 0):
+        fail(f"bench_torch {label}: rate {cell.rate}, spread {cell.spread}")
+    if any(counts[k] for k in WINDOW_KERNELS + ("affine_resample",
+                                                  "photometric")):
+        fail(f"bench_torch {label} launched kernels off its path: {counts}")
+    return cell, counts
+
+
+def phase_bench(m13, card):
+    """Phase 24: bench_torch.py's mode-7 and mode-9 cells at B=64 in this
+    process, their legacy-form lines, mode 9's per-step ms, the launches
+    of each, and mode 13 with flow1 and masks after the cell's hygiene,
+    its peak beside phase 10's."""
+    import bench_torch
+
+    atlas = procedural_atlas(384, 512)
+    for mode, n_steps in ((7, 8), (9, 6)):
+        cell, counts = bench_cell(f"mode {mode}", mode, 64, n_steps, atlas,
+                                  pipelined=(mode == 9))
+        dispatched = 1 + n_steps + (
+            bench_torch.pipelined_steps(n_steps, 64) if mode == 9 else 0)
+        built = counts["coarse_gdisp"] // 36
+        if counts["scene_render"] != dispatched or (
+                mode == 9 and (not built
+                               or counts["coarse_gdisp"] != 36 * built
+                               or counts["hwarp_rows"] != 34 * built)) or (
+                mode == 7 and counts["coarse_gdisp"] + counts["hwarp_rows"]):
+            fail(f"bench_torch mode {mode}: kernel launches {counts} for "
+                 f"{dispatched} steps")
+        print(f"phase 24, bench_torch.py {mode} 64 ({n_steps} steps): "
+              + json.dumps(bench_torch.legacy_payload(mode, cell, 64,
+                                                      n_steps)))
+        print(f"bench_torch mode {mode}, B=64: timed steps (ms, step order) "
+              f"{[round(1e3 * t, 2) for t in cell.step_s]}, pipelined "
+              + (f"{cell.pipelined:.2f} samples/s" if cell.pipelined
+                 else "not run")
+              + f", peak memory {cell.peak_gib:.2f} GiB, kernel launches "
+              f"{json.dumps(counts)} for {dispatched} steps"
+              + (f" ({built} bank epochs built)" if mode == 9 else "")
+              + f" [{card}]", flush=True)
+    cell, counts = bench_cell("mode 13", 13, 64, 6, atlas, cfg_kwargs={
+        "compute_inverse_flow": True, "emit_masks": True})
+    if counts["scene_render"] != 7:
+        fail(f"bench_torch mode 13: kernel launches {counts} for 7 steps")
+    print(f"bench_torch mode 13 with flow1 and masks, B=64 (phase 10's cell"
+          f" after gc.collect and empty_cache): {cell.rate:.1f} samples/s, "
+          f"peak memory {cell.peak_gib:.2f} GiB; phase 10's main path "
+          f"{m13['peak_gib']:.2f} GiB with {m13['held_gib']:.2f} held at its "
+          f"start [{card}]", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
@@ -3317,6 +3389,9 @@ def main():
     by_name["coarse_gdisp"]["max_abs_err"] = max(
         by_name["coarse_gdisp"]["max_abs_err"], c_err)
     stamp("phase 23 (coarse_gdisp strides and steps) done")
+    # ---- 24: bench_torch.py's cells ----
+    phase_bench(m13, card)
+    stamp("phase 24 (bench_torch.py cells) done")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

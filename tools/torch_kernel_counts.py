@@ -4,12 +4,13 @@
 (tree, mode), trees in the order given (parent, change, change, parent
 puts each tree first once).
 
-    python3 tools/torch_kernel_counts.py ROOT [ROOT ...]
+    python3 tools/torch_kernel_counts.py [--cpu] ROOT [ROOT ...]
 
 Each ROOT is a checkout whose own ``flowgen_torch`` is imported. Modes 13
-(``flow1`` and masks) and 7 at 512x384, B=64 on a CUDA card, B=2 on the
-CPU. Prints one JSON line per (tree, mode): CUDA kernels a step (0 on the
-CPU) and torch ops a step.
+(``flow1`` and masks) and 7 at 512x384, B=64 on the CUDA card; with
+``--cpu``, B=2 on the CPU (the kernels' plain versions: 0 CUDA kernels).
+Without a card and without ``--cpu`` it exits non-zero. Prints one JSON
+line per (tree, mode): CUDA kernels a step and torch ops a step.
 """
 
 import json
@@ -18,7 +19,7 @@ import subprocess
 import sys
 
 
-def one(root: str, mode: int):
+def one(root: str, mode: int, cpu: bool = False):
     sys.path.insert(0, os.path.abspath(root))
     import torch
     from torch.autograd import DeviceType
@@ -27,7 +28,10 @@ def one(root: str, mode: int):
     import flowgen_torch
     from flowgen_torch.pipeline.generator import Generator
 
-    cuda = torch.cuda.is_available()
+    cuda = not cpu
+    if cuda and not torch.cuda.is_available():
+        sys.exit("torch.cuda.is_available() is false: this count needs a "
+                 "GPU (pass --cpu to count the plain versions' torch ops)")
     if cuda:
         from flowgen_torch.ops import _build
 
@@ -59,10 +63,14 @@ def one(root: str, mode: int):
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--one"]:
-        one(sys.argv[2], int(sys.argv[3]))
+    args = sys.argv[1:]
+    cpu = "--cpu" in args
+    args = [a for a in args if a != "--cpu"]
+    if args[:1] == ["--one"]:
+        one(args[1], int(args[2]), cpu)
     else:
         for mode in (13, 7):
-            for root in sys.argv[1:]:
+            for root in args:
                 subprocess.run([sys.executable, os.path.abspath(__file__),
-                                "--one", root, str(mode)], check=True)
+                                "--one", root, str(mode)]
+                               + (["--cpu"] if cpu else []), check=True)
