@@ -1,0 +1,741 @@
+"""Scene sampling of the reference: a frozen copy of the port's mode table
+(``config.py``), shapers (``random/shapers.py``), scene records
+(``params/blueprint.py``) and sampler (``params/sampler.py``), so that the
+reference re-derives every scene from the seed without the program. Every
+quantity is a pure function of ``(seed, sample_index, stream, object,
+component)`` through the per-sample threefry bits table (``streams.py``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from . import affine
+from .fp import cos, div, f32, sin
+from .streams import ScopeDraws, Stream, sample_bits_table
+
+PI = math.pi
+
+# Object-slot capacities for the fixed-shape (XLA-friendly) scene representation.
+# The reference samples 16..24 foreground objects (DataGenerator.cpp:2832-2835,
+# Uniform(16,24) truncated to int, so 16..23 occur) and 1..7 composite components
+# (DataGenerator.cpp:2384, FixedRangeUniformInt(1,7)).
+MAX_OBJECTS = 24
+MAX_COMPONENTS = 7
+MAX_SPOKES = 20          # FixedRangeUniformInt(3, 20) (DataGenerator.cpp:1395 etc.)
+EDGE_SUBDIV = 6          # points per spoke-step when flattening outlines
+MAX_EDGES = MAX_SPOKES * EDGE_SUBDIV  # 120 edge slots per polygon primitive
+ELLIPSE_STEPS = 100      # agg::ellipse flattening (DataGenerator.cpp:1080)
+
+# Object kind codes (ObjType_t, DataGenerator.h:369-374).
+KIND_ELLIPSE = 0
+KIND_POLYGON = 1
+KIND_COMPOSITE = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class ModeSpec:
+    """Distribution parameters for one scene-recipe mode.
+
+    Field-by-field transcription of one ``case`` of the 13-way switch in
+    ``ObjectParametersGenerator`` (DataGenerator.cpp:1363-2001). Ranges are
+    ``(a, b)`` pairs; ``*_p`` fields are Trigger probabilities.
+    """
+
+    mode: int
+    # Which object kinds RNG_ObjType chooses among (uniform choice).
+    obj_types: Tuple[int, ...]
+    # Background motion.
+    bg_rot_p: float
+    bg_rot_range: Tuple[float, float]          # GaussianSq, radians
+    bg_trans_range: Tuple[float, float]        # Gaussian4, pixels
+    bg_scale_p: float
+    bg_scale_range: Tuple[float, float]        # GaussianSq
+    # Foreground object motion.
+    obj_trans_range: Tuple[float, float]       # Gaussian3, pixels
+    obj_rot_p: float
+    obj_rot_range: Tuple[float, float]         # GaussianSq, radians
+    obj_scale_p: float
+    obj_scale_range: Tuple[float, float]       # GaussianSq
+    # Intrinsic pose.
+    obj_init_rot_range: Tuple[float, float] = (-PI, PI)   # Uniform; (0,0) in mode 1
+    # Shape recipe switches.
+    axis_aligned_rect: bool = False   # mode 1: fixed 4-spoke rectangle
+    allow_curves: bool = False        # Curve3 trigger active (modes 4-13)
+    use_thin: bool = False            # thin-object logic consulted (modes 7, 9-13)
+    warp_p: float = 0.0               # nonrigid deformation trigger (mode 9: 0.2)
+    # Disparity-pair generation (the sibling capability of the IJCV paper's
+    # framework; not in the reference repo, which is flow-only): motion is
+    # constrained to horizontal translation — no rotation/scaling, zero
+    # vertical components — so (image0, image1) form a rectified stereo pair
+    # and disparity = -flow_x. See disparity_mode().
+    horizontal_only: bool = False
+
+    # --- Parameters identical across all 13 modes ---
+    bg_init_rot_range: Tuple[float, float] = (-PI, PI)    # applied as DEGREES by CImg
+    bg_init_scale_range: Tuple[float, float] = (0.8, 1.2)
+    n_fg_range: Tuple[float, float] = (16.0, 24.0)        # Uniform, truncated to int
+    obj_init_trans_margin: float = 50.0   # U(-W/2-50, 3W/2+50) x, U(-H/2-50, 3H/2+50) y
+    ellipse_scale_range: Tuple[float, float] = (0.5, 2.0)  # x50 -> radii 25..100
+    ellipse_radius_factor: float = 50.0
+    spokes_range: Tuple[int, int] = (3, 20)
+    dphi_range_deg: Tuple[float, float] = (-10.0, 10.0)
+    spoke_r_range: Tuple[float, float] = (20.0, 80.0)
+    poly_scale_range: Tuple[float, float] = (0.5, 2.0)
+    curve_p: float = 0.33
+    n_components_range: Tuple[int, int] = (1, 7)
+    component_additive_p: float = 0.5
+    component_offset_range: Tuple[float, float] = (-20.0, 20.0)
+    comp_init_trans_range: Tuple[float, float] = (-15.0, 15.0)
+    thin_p: float = 0.2
+    thin_shrink: float = 0.05         # x-axis shrink of "needle" objects
+    outline_shrink: float = 0.9       # inner shape of "outline" composites
+    component_shrink: float = 0.2     # non-primary composite components
+    generic_p: float = 0.5
+
+
+def _deg(x: float) -> float:
+    return x * PI / 180.0
+
+
+def _base(mode: int, **kw) -> ModeSpec:
+    return ModeSpec(mode=mode, **kw)
+
+
+_EP = (KIND_ELLIPSE, KIND_POLYGON)
+_EPC = (KIND_ELLIPSE, KIND_POLYGON, KIND_COMPOSITE)
+
+MODES = {
+    # 1 - axis-aligned rectangles, translation-only (DataGenerator.cpp:1364-1411)
+    1: _base(
+        1, obj_types=(KIND_POLYGON,),
+        bg_rot_p=0.0, bg_rot_range=(0.0, 0.0), bg_trans_range=(-40.0, 40.0),
+        bg_scale_p=0.0, bg_scale_range=(1.0, 1.0),
+        obj_trans_range=(-120.0, 120.0),
+        obj_rot_p=0.0, obj_rot_range=(0.0, 0.0),
+        obj_scale_p=0.0, obj_scale_range=(1.0, 1.0),
+        obj_init_rot_range=(0.0, 0.0),
+        axis_aligned_rect=True,
+    ),
+    # 2 - straight-edged polygons, translation-only (cpp:1412-1459)
+    2: _base(
+        2, obj_types=(KIND_POLYGON,),
+        bg_rot_p=0.0, bg_rot_range=(0.0, 0.0), bg_trans_range=(-40.0, 40.0),
+        bg_scale_p=0.0, bg_scale_range=(1.0, 1.0),
+        obj_trans_range=(-120.0, 120.0),
+        obj_rot_p=0.0, obj_rot_range=(0.0, 0.0),
+        obj_scale_p=0.0, obj_scale_range=(1.0, 1.0),
+    ),
+    # 3 - ellipses, translation-only (cpp:1460-1507)
+    3: _base(
+        3, obj_types=(KIND_ELLIPSE,),
+        bg_rot_p=0.0, bg_rot_range=(0.0, 0.0), bg_trans_range=(-40.0, 40.0),
+        bg_scale_p=0.0, bg_scale_range=(1.0, 1.0),
+        obj_trans_range=(-120.0, 120.0),
+        obj_rot_p=0.0, obj_rot_range=(0.0, 0.0),
+        obj_scale_p=0.0, obj_scale_range=(1.0, 1.0),
+    ),
+    # 4 - ellipses + polygons (with curves), translation+rotation (cpp:1508-1555)
+    4: _base(
+        4, obj_types=_EP,
+        bg_rot_p=0.3, bg_rot_range=(-_deg(10), _deg(10)), bg_trans_range=(-40.0, 40.0),
+        bg_scale_p=0.0, bg_scale_range=(1.0, 1.0),
+        obj_trans_range=(-120.0, 120.0),
+        obj_rot_p=0.7, obj_rot_range=(-_deg(30), _deg(30)),
+        obj_scale_p=0.0, obj_scale_range=(1.0, 1.0),
+        allow_curves=True,
+    ),
+    # 5 - 4 + scaling motion (cpp:1556-1603)
+    5: _base(
+        5, obj_types=_EP,
+        bg_rot_p=0.3, bg_rot_range=(-_deg(10), _deg(10)), bg_trans_range=(-40.0, 40.0),
+        bg_scale_p=0.6, bg_scale_range=(0.93, 1.07),
+        obj_trans_range=(-120.0, 120.0),
+        obj_rot_p=0.7, obj_rot_range=(-_deg(30), _deg(30)),
+        obj_scale_p=0.7, obj_scale_range=(0.8, 1.2),
+        allow_curves=True,
+    ),
+    # 6 - 5 + composite objects with holes (cpp:1604-1653)
+    6: _base(
+        6, obj_types=_EPC,
+        bg_rot_p=0.3, bg_rot_range=(-_deg(10), _deg(10)), bg_trans_range=(-40.0, 40.0),
+        bg_scale_p=0.6, bg_scale_range=(0.93, 1.07),
+        obj_trans_range=(-120.0, 120.0),
+        obj_rot_p=0.7, obj_rot_range=(-_deg(30), _deg(30)),
+        obj_scale_p=0.7, obj_scale_range=(0.8, 1.2),
+        allow_curves=True,
+    ),
+    # 7 - 6 + thin "needle"/"outline" objects (cpp:1654-1703)
+    7: _base(
+        7, obj_types=_EPC,
+        bg_rot_p=0.3, bg_rot_range=(-_deg(10), _deg(10)), bg_trans_range=(-40.0, 40.0),
+        bg_scale_p=0.6, bg_scale_range=(0.93, 1.07),
+        obj_trans_range=(-120.0, 120.0),
+        obj_rot_p=0.7, obj_rot_range=(-_deg(30), _deg(30)),
+        obj_scale_p=0.7, obj_scale_range=(0.8, 1.2),
+        allow_curves=True, use_thin=True,
+    ),
+    # 8 - shapes of 4 but translation-only (cpp:1704-1751)
+    8: _base(
+        8, obj_types=_EP,
+        bg_rot_p=0.0, bg_rot_range=(0.0, 0.0), bg_trans_range=(-40.0, 40.0),
+        bg_scale_p=0.0, bg_scale_range=(1.0, 1.0),
+        obj_trans_range=(-120.0, 120.0),
+        obj_rot_p=0.0, obj_rot_range=(0.0, 0.0),
+        obj_scale_p=0.0, obj_scale_range=(1.0, 1.0),
+        allow_curves=True,
+    ),
+    # 9 - 7 + nonrigid deformations (cpp:1752-1801)
+    9: _base(
+        9, obj_types=_EPC,
+        bg_rot_p=0.3, bg_rot_range=(-_deg(10), _deg(10)), bg_trans_range=(-40.0, 40.0),
+        bg_scale_p=0.6, bg_scale_range=(0.93, 1.07),
+        obj_trans_range=(-120.0, 120.0),
+        obj_rot_p=0.7, obj_rot_range=(-_deg(30), _deg(30)),
+        obj_scale_p=0.7, obj_scale_range=(0.8, 1.2),
+        allow_curves=True, use_thin=True, warp_p=0.2,
+    ),
+    # 10 - 7 with halved motion magnitudes (cpp:1802-1852)
+    10: _base(
+        10, obj_types=_EPC,
+        bg_rot_p=0.176, bg_rot_range=(-_deg(5), _deg(5)), bg_trans_range=(-20.0, 20.0),
+        bg_scale_p=0.429, bg_scale_range=(0.965, 1.035),
+        obj_trans_range=(-60.0, 60.0),
+        obj_rot_p=0.539, obj_rot_range=(-_deg(15), _deg(15)),
+        obj_scale_p=0.539, obj_scale_range=(0.9, 1.1),
+        allow_curves=True, use_thin=True,
+    ),
+    # 11 - 7 with doubled motion magnitudes (cpp:1853-1902)
+    11: _base(
+        11, obj_types=_EPC,
+        bg_rot_p=0.462, bg_rot_range=(-_deg(20), _deg(20)), bg_trans_range=(-80.0, 80.0),
+        bg_scale_p=0.75, bg_scale_range=(0.86, 1.14),
+        obj_trans_range=(-240.0, 240.0),
+        obj_rot_p=0.824, obj_rot_range=(-_deg(60), _deg(60)),
+        obj_scale_p=0.824, obj_scale_range=(0.6, 1.4),
+        allow_curves=True, use_thin=True,
+    ),
+    # 12 - 7 with thirded motion magnitudes (cpp:1903-1952)
+    12: _base(
+        12, obj_types=_EPC,
+        bg_rot_p=0.125, bg_rot_range=(-_deg(3.3), _deg(3.3)),
+        bg_trans_range=(-13.3, 13.3),
+        bg_scale_p=0.333, bg_scale_range=(0.976, 1.023),
+        obj_trans_range=(-40.0, 40.0),
+        obj_rot_p=0.437, obj_rot_range=(-_deg(10), _deg(10)),
+        obj_scale_p=0.437, obj_scale_range=(0.933, 1.066),
+        allow_curves=True, use_thin=True,
+    ),
+    # 13 - 7 with tripled motion magnitudes (cpp:1953-2002)
+    13: _base(
+        13, obj_types=_EPC,
+        bg_rot_p=0.563, bg_rot_range=(-_deg(30), _deg(30)),
+        bg_trans_range=(-120.0, 120.0),
+        bg_scale_p=0.818, bg_scale_range=(0.79, 1.21),
+        obj_trans_range=(-360.0, 360.0),
+        obj_rot_p=0.875, obj_rot_range=(-_deg(90), _deg(90)),
+        obj_scale_p=0.875, obj_scale_range=(0.4, 1.6),
+        allow_curves=True, use_thin=True,
+    ),
+}
+
+
+def base_gauss(a, b, x, normalize):
+    """Map a (shaped) normal sample into [a, b]; out-of-range falls back to
+    the midpoint (baseGauss, DataGenerator.cpp:828-831)."""
+    mid = (b + a) / 2.0
+    sample = div(x * (mid - a), normalize) + mid
+    ok = (f32(a) <= sample) & (sample <= f32(b))
+    return torch.where(ok, sample, torch.full_like(sample, mid))
+
+
+def gaussian_sq(a, b, n01):
+    """Signed-square shaper, normaliser 6 (DataGenerator.cpp:882-890)."""
+    t = torch.sign(n01) * (n01 * n01)
+    return base_gauss(a, b, t, 6.0)
+
+
+def gaussian_cube(a, b, n01):
+    """Cube shaper, normaliser 10 (DataGenerator.cpp:893-900)."""
+    return base_gauss(a, b, (n01 * n01) * n01, 10.0)
+
+
+def gaussian_4(a, b, n01):
+    """Signed-4th-power shaper, normaliser 15 (DataGenerator.cpp:903-911)."""
+    sq = n01 * n01
+    t = torch.sign(n01) * (sq * sq)
+    return base_gauss(a, b, t, 15.0)
+
+
+def trigger(p, u01):
+    """True with probability ``p`` given u ~ U[0,1) (cpp:846-849)."""
+    return u01 < f32(p)
+
+
+def choice(options, uint):
+    """Uniform choice over a static tuple given an unbounded random int
+    (cpp:852-861)."""
+    opts = torch.as_tensor(options, device=uint.device)
+    return opts[(uint % opts.shape[0]).long()]
+
+
+class Background(NamedTuple):
+    """Background blueprint (generateBackground, DataGenerator.cpp:2105-2143)."""
+
+    motion: torch.Tensor       # (B,2,3)
+    tex_id: torch.Tensor       # (B,) int32
+    tex_rot_deg: torch.Tensor  # (B,) sampled in [-pi, pi], applied as degrees
+    tex_zoom: torch.Tensor     # (B,)
+    tex_shift: torch.Tensor    # (B,2)
+    warp: torch.Tensor         # (B,) bool
+    warp_slot: torch.Tensor    # (B,) int32
+
+
+class Objects(NamedTuple):
+    """Per-object state shared by all of an object's primitives. (B,K) leaves."""
+
+    valid: torch.Tensor        # bool (B,K)
+    tex_id: torch.Tensor       # int32 (B,K)
+    motion: torch.Tensor       # f32 (B,K,2,3) incl. background conjugation
+    motion_inv: torch.Tensor   # f32 (B,K,2,3)
+    warp: torch.Tensor         # bool (B,K)
+    warp_slot: torch.Tensor    # int32 (B,K)
+
+
+class Primitives(NamedTuple):
+    """Per-primitive geometry. (B,K,C) leaves."""
+
+    valid: torch.Tensor        # bool (B,K,C)
+    additive: torch.Tensor     # bool (B,K,C)
+    is_poly: torch.Tensor      # bool (B,K,C)
+    intrinsic: torch.Tensor    # f32 (B,K,C,2,3)
+    ell_rx: torch.Tensor       # f32 (B,K,C)
+    ell_ry: torch.Tensor       # f32 (B,K,C)
+    edge_pts: torch.Tensor     # f32 (B,K,C,E,2)
+    n_edges: torch.Tensor      # int32 (B,K,C)
+
+
+class Scene(NamedTuple):
+    """A batch of complete generation recipes."""
+
+    background: Background
+    objects: Objects
+    prims: Primitives
+    n_objects: torch.Tensor    # int32 (B,)
+
+
+def map_scene(fn, scene):
+    """Apply ``fn`` to every tensor leaf of a scene record."""
+    if isinstance(scene, tuple) and hasattr(scene, "_fields"):
+        return type(scene)(*(map_scene(fn, v) for v in scene))
+    return fn(scene)
+
+
+SEG_DUMMY = 0
+SEG_LINE = 1
+SEG_CURVE = 2
+
+# Bezier parameters t = i / EDGE_SUBDIV, divided in float32 as XLA does.
+_SUB_T = np.arange(EDGE_SUBDIV, dtype=np.float32) / np.float32(EDGE_SUBDIV)
+
+
+def _where(c, a, b):
+    """``jnp.where`` with Python-scalar branches allowed on either side."""
+    if not torch.is_tensor(a):
+        a = torch.full_like(b, a) if torch.is_tensor(b) else torch.tensor(a)
+    if not torch.is_tensor(b):
+        b = torch.full_like(a, b)
+    return torch.where(c, a, b)
+
+
+def _triggered(d: ScopeDraws, s_trig, s_val, p, a, b, default, shaper):
+    hit = trigger(p, d.uniform(s_trig, 0.0, 1.0))
+    val = shaper(a, b, d.normal(s_val))
+    return _where(hit, val, default)
+
+
+# ---------------------------------------------------------------------------
+# Polygon geometry
+# ---------------------------------------------------------------------------
+
+
+def _sample_spoke_polygon(d: ScopeDraws, spec: ModeSpec):
+    """Star polygon with perturbed spoke angles and random radii
+    (cpp:2206-2229, 2287-2316). Returns verts (..., S, 2), segment types
+    (..., S) and the spoke count (...)."""
+    S = MAX_SPOKES
+    dev = d.row.device
+    n = d.uniform_int(Stream.POLY_SPOKES, *spec.spokes_range)
+    i = torch.arange(S, dtype=torch.float32, device=dev)
+    dphi = d.uniform(Stream.POLY_DPHI, *spec.dphi_range_deg, (S,))
+    phi = (div(i * 360.0, n.to(torch.float32)[..., None]) + dphi) * f32(
+        math.pi / 180.0
+    )
+    r = d.uniform(Stream.POLY_R, *spec.spoke_r_range, (S,))
+    xs = d.uniform(Stream.POLY_SCALE_X, *spec.poly_scale_range)
+    ys = d.uniform(Stream.POLY_SCALE_Y, *spec.poly_scale_range)
+    verts = torch.stack(
+        [xs[..., None] * r * cos(phi), ys[..., None] * r * sin(phi)],
+        dim=-1,
+    )
+
+    if spec.axis_aligned_rect:
+        # Mode 1: fixed 4-spoke axis-aligned rectangle (cpp:2163-2183).
+        x = r[..., 0] * xs
+        y = r[..., 0] * ys
+        sgn = torch.tensor(
+            [[1.0, -1.0], [1.0, 1.0], [-1.0, 1.0], [-1.0, -1.0]], device=dev
+        )
+        rect = sgn * torch.stack([x, y], -1)[..., None, :]
+        verts = torch.zeros_like(verts)
+        verts[..., :4, :] = rect
+        n = torch.full_like(n, 4)
+        types = torch.full(verts.shape[:-1], SEG_LINE, dtype=torch.int32,
+                           device=dev)
+        types[..., 0] = SEG_DUMMY
+        return verts, types, n
+
+    # Segment types with the reference's skip-next-after-curve walk
+    # (cpp:2305-2315).
+    curve_u = d.uniform(Stream.POLY_CURVE_TRIGGER, 0.0, 1.0, (S,))
+    can_curve = spec.allow_curves and spec.curve_p > 0.0
+    types = [torch.full_like(n, SEG_DUMMY)]
+    prev_dummy = torch.zeros_like(n, dtype=torch.bool)
+    for idx in range(1, S):
+        if can_curve:
+            is_curve = (
+                (idx < n - 1) & (curve_u[..., idx] < f32(spec.curve_p))
+                & ~prev_dummy
+            )
+        else:
+            is_curve = torch.zeros_like(prev_dummy)
+        t = torch.where(
+            prev_dummy, SEG_DUMMY,
+            torch.where(is_curve, SEG_CURVE, SEG_LINE),
+        ).to(torch.int32)
+        types.append(t)
+        prev_dummy = is_curve
+    return verts, torch.stack(types, -1), n
+
+
+def _take_spoke(verts, idx):
+    """verts[..., idx, :] for a per-scope index tensor idx (...)."""
+    g = idx.long()[..., None, None].expand(idx.shape + (1, verts.shape[-1]))
+    return torch.gather(verts, -2, g)
+
+
+def flatten_outline(verts, types, n):
+    """Flatten a (possibly curved) closed spoke outline to ``MAX_EDGES``
+    points, compacted to the front (padding repeats point 0). Each half of a
+    quadratic Bezier is sampled at ``EDGE_SUBDIV`` points; straight segments
+    keep one point. Returns (points (..., MAX_EDGES, 2), n_points)."""
+    S = MAX_SPOKES
+    dev = verts.device
+    e = torch.arange(S, device=dev)
+    n_ = n.long()[..., None]
+    last = e == n_ - 1                                     # (..., S)
+    ve = verts
+    v0 = verts[..., 0:1, :]
+    v1 = verts[..., 1:2, :]
+    va = torch.where(last[..., None], v0, torch.roll(verts, -1, dims=-2))
+    vprev = torch.where(
+        (e == 0)[..., None], _take_spoke(verts, n - 1),
+        torch.roll(verts, 1, dims=-2),
+    )
+    vnext = torch.where(
+        last[..., None], v1,
+        torch.where((e == n_ - 2)[..., None], v0,
+                    torch.roll(verts, -2, dims=-2)),
+    )
+    ta = torch.where(last, types[..., 0:1], torch.roll(types, -1, dims=-1))
+    a_nonzero = ~last
+
+    t = torch.from_numpy(_SUB_T).to(dev)[:, None]         # (SUB, 1)
+
+    def bezier(p0, c, p1, s):
+        p0, c, p1 = p0[..., None, :], c[..., None, :], p1[..., None, :]
+        om = 1 - s
+        return (om * om) * p0 + ((2 * s) * om) * c + (s * s) * p1
+
+    line_pts = ve[..., None, :] + t * (va - ve)[..., None, :]
+    first_half = bezier(ve, va, vnext, t * 0.5)
+    second_half = bezier(vprev, ve, va, 0.5 + t * 0.5)
+
+    case_cfirst = (ta == SEG_CURVE) & a_nonzero
+    case_csecond = (ta == SEG_DUMMY) & a_nonzero
+    is_curve_slot = case_cfirst | case_csecond
+    pts = torch.where(
+        case_cfirst[..., None, None], first_half,
+        torch.where(case_csecond[..., None, None], second_half, line_pts),
+    )                                                      # (..., S, SUB, 2)
+
+    # Compaction as an exact gather: output row j takes the unique kept
+    # spoke whose [start, cum) interval holds j, at sub-offset j - start
+    # (curve slots keep all subdivisions, line slots sub 0 only).
+    per_spoke = torch.where(is_curve_slot, EDGE_SUBDIV, 1) * (e < n_)
+    cum = torch.cumsum(per_spoke, dim=-1)
+    start = cum - per_spoke
+    n_pts = cum[..., -1]
+    j = torch.arange(MAX_EDGES, device=dev)
+    spoke = (cum[..., None, :] <= j[:, None]).sum(-1).clamp(max=S - 1)
+    start_j = torch.gather(start, -1, spoke)
+    curve_j = torch.gather(is_curve_slot, -1, spoke)
+    off = torch.where(curve_j, j - start_j, 0)
+    flat = spoke * EDGE_SUBDIV + off
+    flat = torch.where(j < n_pts[..., None], flat, 0)
+    src = pts.reshape(pts.shape[:-3] + (S * EDGE_SUBDIV, 2))
+    out = torch.gather(src, -2, flat[..., None].expand(flat.shape + (2,)))
+    return out, n_pts.to(torch.int32)
+
+
+def _sample_geometry(d: ScopeDraws, spec: ModeSpec, kinds):
+    """One primitive's kind, ellipse radii and flattened outline."""
+    kind = choice(
+        torch.tensor(kinds, dtype=torch.int32), d.raw_index(Stream.OBJ_TYPE)
+    )
+    f = spec.ellipse_radius_factor
+    rx = d.uniform(Stream.ELLI_SCALE_X, *spec.ellipse_scale_range) * f
+    ry = d.uniform(Stream.ELLI_SCALE_Y, *spec.ellipse_scale_range) * f
+    verts, types, n = _sample_spoke_polygon(d, spec)
+    edge_pts, n_edges = flatten_outline(verts, types, n)
+    return kind, rx, ry, edge_pts, n_edges
+
+
+# ---------------------------------------------------------------------------
+# Scene sampling
+# ---------------------------------------------------------------------------
+
+
+def sample_background(d: ScopeDraws, spec: ModeSpec, width, height,
+                      n_warp_slots):
+    """generateBackground (cpp:2105-2143) over the sample-level scope rows."""
+    rot = _triggered(
+        d, Stream.BG_ROT_TRIGGER, Stream.BG_ROT,
+        spec.bg_rot_p, *spec.bg_rot_range, 0.0, gaussian_sq,
+    )
+    scale = _triggered(
+        d, Stream.BG_SCALE_TRIGGER, Stream.BG_SCALE,
+        spec.bg_scale_p, *spec.bg_scale_range, 1.0, gaussian_sq,
+    )
+    pre_tx = gaussian_4(*spec.bg_trans_range, d.normal(Stream.BG_TRANS_X))
+    pre_ty = gaussian_4(*spec.bg_trans_range, d.normal(Stream.BG_TRANS_Y))
+    if spec.horizontal_only:
+        pre_ty = torch.zeros_like(pre_ty)
+    tx = cos(-rot) * pre_tx - sin(-rot) * pre_ty
+    ty = sin(-rot) * pre_tx + cos(-rot) * pre_ty
+    motion = affine.motion_transform(rot, scale, tx, ty)
+
+    dev = d.row.device
+    tex_id = d.raw_index(Stream.BG_TEX_ID)
+    tex_rot = d.uniform(Stream.BG_INIT_ROT, *spec.bg_init_rot_range)
+    tex_zoom = d.uniform(Stream.BG_INIT_SCALE, *spec.bg_init_scale_range)
+    shift_x = choice(
+        torch.tensor([0.0, float(width)], device=dev),
+        d.raw_index(Stream.BG_INIT_TRANS_X),
+    )
+    shift_y = choice(
+        torch.tensor([0.0, float(height)], device=dev),
+        d.raw_index(Stream.BG_INIT_TRANS_Y),
+    )
+    warp = trigger(
+        spec.warp_p, d.uniform(Stream.OBJ_DEFORMS_NONRIGIDLY, 0.0, 1.0)
+    )
+    warp_slot = d.uniform_int(Stream.WARP_ASSIGN, 0, max(n_warp_slots - 1, 0))
+    return Background(
+        motion=motion,
+        tex_id=tex_id,
+        tex_rot_deg=tex_rot,
+        tex_zoom=tex_zoom,
+        tex_shift=torch.stack([shift_x, shift_y], -1),
+        warp=warp,
+        warp_slot=warp_slot,
+    )
+
+
+def sample_scene(skeys, spec: ModeSpec, *, width: int, height: int,
+                 n_warp_slots: int = 1) -> Scene:
+    """Sample a batch of scene blueprints from per-sample keys (B, 2)."""
+    K, C = MAX_OBJECTS, MAX_COMPONENTS
+    dev = skeys.device
+    w2, h2 = width / 2.0, height / 2.0
+    m = spec.obj_init_trans_margin
+
+    bits = sample_bits_table(skeys, 1 + K + K * C)        # (B, 1+K+KC, S)
+    d0 = ScopeDraws(bits[:, 0])
+    bg = sample_background(d0, spec, width, height, n_warp_slots)
+    ok = ScopeDraws(bits[:, 1 : 1 + K])                   # (B, K, S)
+    ck = ScopeDraws(bits[:, 1 + K :].reshape(bits.shape[0], K, C, -1))
+
+    n_objects = d0.uniform(Stream.NUM_FG_OBJECTS, *spec.n_fg_range).to(
+        torch.int32
+    )
+    ks = torch.arange(K, device=dev)
+    valid = ks < n_objects[:, None]                       # (B, K)
+
+    non_composite = tuple(k for k in spec.obj_types if k != KIND_COMPOSITE)
+
+    obj_kind, s_rx, s_ry, s_pts, s_ne = _sample_geometry(ok, spec, spec.obj_types)
+    obj_kind = obj_kind.to(dev)
+    is_comp = obj_kind == KIND_COMPOSITE
+
+    init_rot = ok.uniform(Stream.OBJ_INIT_ROT, *spec.obj_init_rot_range)
+    init_tx = ok.uniform(Stream.OBJ_INIT_TRANS_X, -w2 - m, 3 * w2 + m)
+    init_ty = ok.uniform(Stream.OBJ_INIT_TRANS_Y, -h2 - m, 3 * h2 + m)
+    rot = _triggered(
+        ok, Stream.OBJ_ROT_TRIGGER, Stream.OBJ_ROT,
+        spec.obj_rot_p, *spec.obj_rot_range, 0.0, gaussian_sq,
+    )
+    scale = _triggered(
+        ok, Stream.OBJ_SCALE_TRIGGER, Stream.OBJ_SCALE,
+        spec.obj_scale_p, *spec.obj_scale_range, 1.0, gaussian_sq,
+    )
+    tx = gaussian_cube(*spec.obj_trans_range, ok.normal(Stream.OBJ_TRANS_X))
+    ty = gaussian_cube(*spec.obj_trans_range, ok.normal(Stream.OBJ_TRANS_Y))
+    if spec.horizontal_only:
+        ty = torch.zeros_like(ty)
+    tex_id = ok.raw_index(Stream.OBJ_TEX_ID)
+    thin = trigger(
+        spec.thin_p, ok.uniform(Stream.OBJ_IS_EXTRA_THIN, 0.0, 1.0)
+    ) & bool(spec.use_thin)
+    warp = trigger(
+        spec.warp_p, ok.uniform(Stream.OBJ_DEFORMS_NONRIGIDLY, 0.0, 1.0)
+    )
+    warp_slot = ok.uniform_int(Stream.WARP_ASSIGN, 0, max(n_warp_slots - 1, 0))
+    motion = affine.motion_transform(rot, scale, tx, ty)  # (B, K, 2, 3)
+
+    # --- component-slot geometry (used when the object is a composite) ---
+    c_kind, c_rx, c_ry, c_pts, c_ne = _sample_geometry(ck, spec, non_composite)
+    c_kind = c_kind.to(dev)
+    c_init_rot = ck.uniform(Stream.OBJ_INIT_ROT, *spec.obj_init_rot_range)
+    off_x = ck.uniform(Stream.COMP_OFFSET, *spec.component_offset_range)
+    off_y = ck.uniform(Stream.COMP_OFFSET_Y, *spec.component_offset_range)
+    c_add = trigger(
+        spec.component_additive_p,
+        ck.uniform(Stream.COMP_IS_ADDITIVE, 0.0, 1.0),
+    )
+    n_parts = ok.uniform_int(Stream.COMP_NUM_COMPONENTS, *spec.n_components_range)
+
+    cs = torch.arange(C, device=dev)
+    e1 = lambda x: x[..., None]                            # (B,K) -> (B,K,1)
+
+    # Regular composite (cpp:2384-2428 / 2549-2592).
+    reg_valid = cs < e1(n_parts)
+    is_primary = cs == 0
+    shrink = _where(is_primary, 1.0,
+                    torch.full((C,), f32(spec.component_shrink), device=dev))
+    reg_rot = torch.where(is_primary, e1(init_rot), c_init_rot)
+    reg_tx = torch.where(is_primary, e1(init_tx), e1(init_tx) + off_x)
+    reg_ty = torch.where(is_primary, e1(init_ty), e1(init_ty) + off_y)
+    reg_add = is_primary | c_add
+    reg_rx = c_rx * shrink
+    reg_ry = c_ry * shrink
+    reg_pts = c_pts * shrink[:, None, None]
+
+    # Thin composite, "outline" style (cpp:2504-2547 / 2668-2713).
+    ell_offset = (c_kind[..., 0] == KIND_ELLIPSE) & trigger(
+        spec.generic_p, ok.uniform(Stream.GENERIC_TRIGGER, 0.0, 1.0)
+    )
+    o_dx = ok.uniform(Stream.COMP_INIT_TRANS_X, *spec.comp_init_trans_range)
+    o_dy = ok.uniform(Stream.COMP_INIT_TRANS_Y, *spec.comp_init_trans_range)
+    inner_scale = _where(ell_offset, 1.0, f32(spec.outline_shrink))
+    thin_valid = (cs < 2).expand(reg_valid.shape)
+    is_outer = cs == 0
+    thin_kind = c_kind[..., 0:1].expand(c_kind.shape)
+    thin_rx = torch.where(is_outer, c_rx[..., 0:1], c_rx[..., 0:1] * e1(inner_scale))
+    thin_ry = torch.where(is_outer, c_ry[..., 0:1], c_ry[..., 0:1] * e1(inner_scale))
+    pts0 = c_pts[..., 0:1, :, :]
+    poly_shrink = _where(c_kind[..., 0] == KIND_POLYGON,
+                         f32(spec.outline_shrink), 1.0)
+    thin_pts = torch.where(
+        is_outer[:, None, None], pts0, pts0 * poly_shrink[..., None, None, None]
+    )
+    keep = is_outer | ~e1(ell_offset)
+    thin_tx = torch.where(keep, e1(init_tx), e1(init_tx + o_dx))
+    thin_ty = torch.where(keep, e1(init_ty), e1(init_ty + o_dy))
+    thin_rot = e1(init_rot).expand(reg_rot.shape)
+    thin_add = is_outer.expand(reg_add.shape)
+
+    # Simple object (one primitive in slot 0); thin needles shrink the local
+    # x axis by thin_shrink (cpp:2462-2464, 2496-2500).
+    needle = thin & ~is_comp
+    simple_valid = (cs == 0).expand(reg_valid.shape)
+    simple_rx = torch.where(needle, s_rx * f32(spec.thin_shrink), s_rx)
+    one = torch.ones(2, device=dev)
+    nshrink = torch.tensor([f32(spec.thin_shrink), 1.0], device=dev)
+    simple_pts = s_pts * torch.where(needle[..., None, None], nshrink, one)
+    # Thin needle ellipses take the literal 100-gon polygon path.
+    ell_needle = needle & (obj_kind == KIND_ELLIPSE)
+    ang = torch.arange(ELLIPSE_STEPS, dtype=torch.float32, device=dev) * f32(
+        2.0 * math.pi / ELLIPSE_STEPS
+    )
+    gon = torch.stack(
+        [cos(ang) * e1(s_rx * f32(spec.thin_shrink)),
+         sin(ang) * e1(s_ry)], -1,
+    )                                                     # (B,K,100,2)
+    gon = torch.cat(
+        [gon, gon[..., :1, :].expand(gon.shape[:-2] + (MAX_EDGES - ELLIPSE_STEPS, 2))],
+        dim=-2,
+    )
+    simple_pts = torch.where(ell_needle[..., None, None], gon, simple_pts)
+    simple_ne = torch.where(ell_needle, ELLIPSE_STEPS, s_ne).to(torch.int32)
+    simple_poly = (obj_kind == KIND_POLYGON) | ell_needle
+
+    comp_thin = thin
+
+    def pick(simple, thin_v, reg_v):
+        return torch.where(
+            e1(is_comp), torch.where(e1(comp_thin), thin_v, reg_v), simple
+        )
+
+    prim_valid = pick(simple_valid, thin_valid, reg_valid) & e1(valid)
+    prim_add = pick(torch.ones_like(reg_add), thin_add, reg_add)
+    prim_is_poly = pick(
+        e1(simple_poly).expand(reg_add.shape),
+        thin_kind == KIND_POLYGON,
+        c_kind == KIND_POLYGON,
+    )
+    prim_rx = pick(e1(simple_rx).expand(reg_rx.shape), thin_rx, reg_rx)
+    prim_ry = pick(e1(s_ry).expand(reg_ry.shape), thin_ry, reg_ry)
+    prim_rot = pick(e1(init_rot).expand(reg_rot.shape), thin_rot, reg_rot)
+    prim_tx = pick(e1(init_tx).expand(reg_tx.shape), thin_tx, reg_tx)
+    prim_ty = pick(e1(init_ty).expand(reg_ty.shape), thin_ty, reg_ty)
+    prim_pts = torch.where(
+        is_comp[..., None, None, None],
+        torch.where(comp_thin[..., None, None, None], thin_pts, reg_pts),
+        simple_pts[:, :, None].expand(reg_pts.shape),
+    )
+    prim_ne = pick(
+        e1(simple_ne).expand(c_ne.shape), c_ne[..., 0:1].expand(c_ne.shape),
+        c_ne,
+    )
+    prim_intrinsic = affine.intrinsic_transform(prim_rot, prim_tx, prim_ty)
+
+    # Fold the conjugated background motion into every object's motion
+    # (addBackgroundMotion, cpp:324-335).
+    bg_conj = affine.conjugate_about(bg.motion, w2, h2)
+    motion_total = affine.compose(motion, bg_conj[:, None])
+
+    objects = Objects(
+        valid=valid,
+        tex_id=tex_id,
+        motion=motion_total,
+        motion_inv=affine.invert(motion_total),
+        warp=warp,
+        warp_slot=warp_slot,
+    )
+    prims = Primitives(
+        valid=prim_valid,
+        additive=prim_add,
+        is_poly=prim_is_poly,
+        intrinsic=prim_intrinsic,
+        ell_rx=prim_rx,
+        ell_ry=prim_ry,
+        edge_pts=prim_pts,
+        n_edges=prim_ne.to(torch.int32),
+    )
+    return Scene(background=bg, objects=objects, prims=prims, n_objects=n_objects)
