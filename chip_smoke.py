@@ -506,7 +506,8 @@ def device_busy(gen, steps: int = 3):
 
     busy_us, n_kernels = 0.0, 0
     for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
+        # The program's spans show on the device too, as annotations.
+        if ev.device_type != DeviceType.CUDA or ev.is_user_annotation:
             continue
         busy_us += getattr(ev, "self_device_time_total",
                            getattr(ev, "self_cuda_time_total", 0.0))
@@ -525,7 +526,8 @@ def cuda_kernels(fn) -> int:
         fn()
         torch.cuda.synchronize()
     return sum(ev.count for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA)
+               if ev.device_type == DeviceType.CUDA
+               and not ev.is_user_annotation)
 
 
 def unpack(frames):

@@ -24,6 +24,7 @@ from ..ops import affine
 from ..ops import resample as resamp
 from ..ops import scene as ps
 from ..params.blueprint import Scene
+from ..utils.profiling import span
 from . import render as render_mod
 
 EDGE_POOL = ((MAX_COMPONENTS * MAX_EDGES + 127) // 128) * 128  # 896
@@ -429,41 +430,45 @@ def scene_tables(scenes: Scene, cfg: DataGenConfig, slabs, bgslabs, src_hw,
     ``compose/render.py:WarpAux`` of ``warpfields/generator.py:
     make_bank_and_aux``. Quadrant modes take ``slabs`` with the rot90
     copies (``ops/scene.py:prepare_slabs``)."""
-    H, W = cfg.height, cfg.width
-    quadrant = ps.quadrant_needed(cfg.mode_spec)
-    n_tex = slabs.shape[0] // 2 if quadrant else slabs.shape[0]
-    count, order, omi, omf, tmi, tmf, edges = prepare_scene_inputs(
-        scenes, cfg, n_tex, quadrant=quadrant
-    )
-    bg = scenes.background
-    bg_meta = torch.stack(
-        [(bg.tex_id % bgslabs.shape[0]).to(torch.int32),
-         bg.warp.to(torch.int32), bg.warp_slot.to(torch.int32)], dim=1,
-    )
-    bgm = _bg_meta_payload(scenes, cfg,
-                           *_source_sizes(bg_meta[:, 0], src_hw, tex_sizes))
+    with span("flowgen.precompute"):
+        H, W = cfg.height, cfg.width
+        quadrant = ps.quadrant_needed(cfg.mode_spec)
+        n_tex = slabs.shape[0] // 2 if quadrant else slabs.shape[0]
+        count, order, omi, omf, tmi, tmf, edges = prepare_scene_inputs(
+            scenes, cfg, n_tex, quadrant=quadrant
+        )
+        bg = scenes.background
+        bg_meta = torch.stack(
+            [(bg.tex_id % bgslabs.shape[0]).to(torch.int32),
+             bg.warp.to(torch.int32), bg.warp_slot.to(torch.int32)], dim=1,
+        )
+        bgm = _bg_meta_payload(
+            scenes, cfg, *_source_sizes(bg_meta[:, 0], src_hw, tex_sizes))
 
-    if _validate_enabled(cfg):
-        viol = int(envelope_violations(scenes, cfg, bgm=bgm))
-        if viol > 0:
-            warnings.warn(
-                f"{viol} scene element(s) exceed mode {cfg.mode}'s declared "
-                "motion envelope; their fused resampling is unreliable"
-            )
+        if _validate_enabled(cfg):
+            viol = int(envelope_violations(scenes, cfg, bgm=bgm))
+            if viol > 0:
+                warnings.warn(
+                    f"{viol} scene element(s) exceed mode {cfg.mode}'s "
+                    "declared motion envelope; their fused resampling is "
+                    "unreliable"
+                )
 
-    has_warp = cfg.mode_spec.warp_p > 0.0
-    if has_warp and warp_aux is None:
-        raise ValueError("mode %d deforms objects: pass warp_aux" % cfg.mode)
-    planes = tuple(warp_aux) if has_warp else (None, None, None)
-    worklist, n_units = ps.build_worklists(count, order, omi)
-    args = (bg_meta, omi, omf, tmi, tmf.contiguous(), bgm.contiguous(),
-            edges.contiguous(), slabs, bgslabs, worklist, n_units) + planes
-    options = dict(
-        spec_key=ps.resample_params(cfg.mode_spec, H, W) + (H, W),
-        use_aa=cfg.use_antialiasing, inverse_flow=cfg.compute_inverse_flow,
-        emit_masks=cfg.emit_masks,
-    )
-    return args, options
+        has_warp = cfg.mode_spec.warp_p > 0.0
+        if has_warp and warp_aux is None:
+            raise ValueError("mode %d deforms objects: pass warp_aux"
+                             % cfg.mode)
+        planes = tuple(warp_aux) if has_warp else (None, None, None)
+        worklist, n_units = ps.build_worklists(count, order, omi)
+        args = (bg_meta, omi, omf, tmi, tmf.contiguous(), bgm.contiguous(),
+                edges.contiguous(), slabs, bgslabs, worklist,
+                n_units) + planes
+        options = dict(
+            spec_key=ps.resample_params(cfg.mode_spec, H, W) + (H, W),
+            use_aa=cfg.use_antialiasing,
+            inverse_flow=cfg.compute_inverse_flow, emit_masks=cfg.emit_masks,
+        )
+        return args, options
 
 
 def render_batch_fused(scenes: Scene, slabs, bgslabs, src_hw,
@@ -483,12 +488,13 @@ def render_batch_fused(scenes: Scene, slabs, bgslabs, src_hw,
     def unpack(v):
         return torch.stack(resamp.unpack_rgb(v), dim=-1)
 
-    out = [unpack(frames[:, 0]), unpack(frames[:, 1]),
-           flow[:, 0:2].permute(0, 2, 3, 1)]
-    if cfg.compute_inverse_flow:
-        out.append(flow[:, 2:4].permute(0, 2, 3, 1))
-    if cfg.emit_masks:
-        out += list(masks_from_ids(ids, flow[:, 0], flow[:, 1]))
+    with span("flowgen.unpack"):
+        out = [unpack(frames[:, 0]), unpack(frames[:, 1]),
+               flow[:, 0:2].permute(0, 2, 3, 1)]
+        if cfg.compute_inverse_flow:
+            out.append(flow[:, 2:4].permute(0, 2, 3, 1))
+        if cfg.emit_masks:
+            out += list(masks_from_ids(ids, flow[:, 0], flow[:, 1]))
     return tuple(out)
 
 
@@ -500,21 +506,22 @@ def masks_from_ids(ids, fx, fy):
     id in frame 1. ``motion_boundary``: 4-neighbourhood discontinuities of
     the frame-0 id image, edges replicated. Returns two (B, H, W) bool
     tensors. Plain tensor code on any device, as in the JAX package."""
-    B, _, H, W = ids.shape
-    ids0, ids1 = ids[:, 0], ids[:, 1]
-    yy = torch.arange(H, dtype=torch.float32, device=ids.device)[:, None]
-    xx = torch.arange(W, dtype=torch.float32, device=ids.device)[None, :]
-    tx = torch.round(xx + fx).to(torch.int32)
-    ty = torch.round(yy + fy).to(torch.int32)
-    oob = (tx < 0) | (tx >= W) | (ty < 0) | (ty >= H)
-    base = (torch.arange(B, device=ids.device) * (H * W))[:, None, None]
-    flat = (base + torch.clamp(ty, 0, H - 1) * W
-            + torch.clamp(tx, 0, W - 1)).long()
-    occlusion = oob | (ids1.reshape(-1)[flat] != ids0)
-    up = torch.cat([ids0[:, :1], ids0[:, :-1]], dim=1)
-    down = torch.cat([ids0[:, 1:], ids0[:, -1:]], dim=1)
-    left = torch.cat([ids0[:, :, :1], ids0[:, :, :-1]], dim=2)
-    right = torch.cat([ids0[:, :, 1:], ids0[:, :, -1:]], dim=2)
-    boundary = ((ids0 != up) | (ids0 != down) | (ids0 != left)
-                | (ids0 != right))
-    return occlusion, boundary
+    with span("flowgen.masks"):
+        B, _, H, W = ids.shape
+        ids0, ids1 = ids[:, 0], ids[:, 1]
+        yy = torch.arange(H, dtype=torch.float32, device=ids.device)[:, None]
+        xx = torch.arange(W, dtype=torch.float32, device=ids.device)[None, :]
+        tx = torch.round(xx + fx).to(torch.int32)
+        ty = torch.round(yy + fy).to(torch.int32)
+        oob = (tx < 0) | (tx >= W) | (ty < 0) | (ty >= H)
+        base = (torch.arange(B, device=ids.device) * (H * W))[:, None, None]
+        flat = (base + torch.clamp(ty, 0, H - 1) * W
+                + torch.clamp(tx, 0, W - 1)).long()
+        occlusion = oob | (ids1.reshape(-1)[flat] != ids0)
+        up = torch.cat([ids0[:, :1], ids0[:, :-1]], dim=1)
+        down = torch.cat([ids0[:, 1:], ids0[:, -1:]], dim=1)
+        left = torch.cat([ids0[:, :, :1], ids0[:, :, :-1]], dim=2)
+        right = torch.cat([ids0[:, :, 1:], ids0[:, :, -1:]], dim=2)
+        boundary = ((ids0 != up) | (ids0 != down) | (ids0 != left)
+                    | (ids0 != right))
+        return occlusion, boundary

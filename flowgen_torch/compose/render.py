@@ -35,6 +35,7 @@ from ..config import BACKGROUND_OBJ_ID, FOREGROUND_ID_BASE, DataGenConfig
 from ..ops import affine, raster, window
 from ..ops import texture as tex_mod
 from ..params.blueprint import map_scene
+from ..utils.profiling import span
 
 # Static window classes for per-object evaluation: (height, width); ``None``
 # is the full frame.
@@ -191,66 +192,69 @@ def background_pass(scenes, atlas_q, cfg: DataGenConfig, warp_bank=None):
     """Background frames and initial flow planes of a batch. ``atlas_q`` is
     quad-packed (T, SH, SW, 12). Returns (frame0, frame1) (B, H, W, 3),
     flow0 (B, H, W, 2) and flow1 (B, H, W, 2) or None."""
-    H, W = cfg.height, cfg.width
-    T, SH, SW = atlas_q.shape[:3]
-    bg = scenes.background
-    B = bg.motion.shape[0]
-    dev = atlas_q.device
-    has_warp = warp_bank is not None and cfg.mode_spec.warp_p > 0.0
-    ix, iy = raster.pixel_grid(W, H, 0.0, device=dev)
-    cx, cy = W / 2.0, H / 2.0
-    flat = atlas_q.reshape(-1, 12)
-    base = ((bg.tex_id % T).to(torch.int64) * (SH * SW)).reshape(B, 1, 1)
+    with span("flowgen.background_pass"):
+        H, W = cfg.height, cfg.width
+        T, SH, SW = atlas_q.shape[:3]
+        bg = scenes.background
+        B = bg.motion.shape[0]
+        dev = atlas_q.device
+        has_warp = warp_bank is not None and cfg.mode_spec.warp_p > 0.0
+        ix, iy = raster.pixel_grid(W, H, 0.0, device=dev)
+        cx, cy = W / 2.0, H / 2.0
+        flat = atlas_q.reshape(-1, 12)
+        base = ((bg.tex_id % T).to(torch.int64) * (SH * SW)).reshape(B, 1, 1)
 
-    def bg_sample(x, y):
-        return tex_mod.sample_bilinear_quad_flat(flat, base, SH, SW, x, y,
-                                                 wrap="reflect")
+        def bg_sample(x, y):
+            return tex_mod.sample_bilinear_quad_flat(flat, base, SH, SW, x, y,
+                                                     wrap="reflect")
 
-    crop_t = tex_mod.randomized_crop_transform(
-        SH, SW, 2 * H, 2 * W, bg.tex_rot_deg, bg.tex_zoom,
-        bg.tex_shift[:, 0], bg.tex_shift[:, 1])
-    bg_pixel_motion = affine.conjugate_about(bg.motion, cx, cy)
-    bg_big_inv = affine.invert(
-        affine.conjugate_about(bg.motion, float(W), float(H)))
-    qx, qy = ix + cx, iy + cy
-    s0x, s0y = _apply(crop_t, qx[None], qy[None])
-    frame0 = bg_sample(s0x, s0y)
+        crop_t = tex_mod.randomized_crop_transform(
+            SH, SW, 2 * H, 2 * W, bg.tex_rot_deg, bg.tex_zoom,
+            bg.tex_shift[:, 0], bg.tex_shift[:, 1])
+        bg_pixel_motion = affine.conjugate_about(bg.motion, cx, cy)
+        bg_big_inv = affine.invert(
+            affine.conjugate_about(bg.motion, float(W), float(H)))
+        qx, qy = ix + cx, iy + cy
+        s0x, s0y = _apply(crop_t, qx[None], qy[None])
+        frame0 = bg_sample(s0x, s0y)
 
-    def big_field_at(field, x, y):
-        # The background field is the crop resized x2 with magnitudes x2:
-        # its value at big coord q is 2 * field((q + 0.5)/2 - 0.5).
-        fx, fy = _bilinear_flow_at(field, bg.warp_slot, (x + 0.5) / 2.0 - 0.5,
-                                   (y + 0.5) / 2.0 - 0.5)
-        return 2.0 * fx, 2.0 * fy
+        def big_field_at(field, x, y):
+            # The background field is the crop resized x2 with magnitudes x2:
+            # its value at big coord q is 2 * field((q + 0.5)/2 - 0.5).
+            fx, fy = _bilinear_flow_at(field, bg.warp_slot,
+                                       (x + 0.5) / 2.0 - 0.5,
+                                       (y + 0.5) / 2.0 - 0.5)
+            return 2.0 * fx, 2.0 * fy
 
-    warp = bg.warp.reshape(B, 1, 1) if has_warp else None
-    if has_warp:
-        idx, idy = big_field_at(warp_bank.iflow, qx.expand(B, H, W),
-                                qy.expand(B, H, W))
-        wq_x = torch.where(warp, qx + idx, qx)
-        wq_y = torch.where(warp, qy + idy, qy)
-    else:
-        wq_x, wq_y = qx[None], qy[None]
-    bx, by = _apply(bg_big_inv, wq_x, wq_y)
-    s1x, s1y = _apply(crop_t, bx, by)
-    frame1 = bg_sample(s1x, s1y)
+        warp = bg.warp.reshape(B, 1, 1) if has_warp else None
+        if has_warp:
+            idx, idy = big_field_at(warp_bank.iflow, qx.expand(B, H, W),
+                                    qy.expand(B, H, W))
+            wq_x = torch.where(warp, qx + idx, qx)
+            wq_y = torch.where(warp, qy + idy, qy)
+        else:
+            wq_x, wq_y = qx[None], qy[None]
+        bx, by = _apply(bg_big_inv, wq_x, wq_y)
+        s1x, s1y = _apply(crop_t, bx, by)
+        frame1 = bg_sample(s1x, s1y)
 
-    fqx, fqy = _apply(bg_pixel_motion, ix[None], iy[None])
-    flow_x = fqx - ix
-    flow_y = fqy - iy
-    if has_warp:
-        mx, my = fqx + cx, fqy + cy
-        wfx, wfy = big_field_at(warp_bank.flow, mx, my)
-        inb = warp & (mx >= 0) & (mx < 2 * W) & (my >= 0) & (my < 2 * H)
-        flow_x = flow_x + torch.where(inb, wfx, torch.zeros_like(wfx))
-        flow_y = flow_y + torch.where(inb, wfy, torch.zeros_like(wfy))
-    flow0 = torch.stack([flow_x, flow_y], -1).contiguous()
-    flow1 = None
-    if cfg.compute_inverse_flow:
-        iqx, iqy = _apply(affine.invert(bg_pixel_motion), ix[None], iy[None])
-        flow1 = torch.stack([iqx - ix, iqy - iy], -1).contiguous()
-    return (torch.round(frame0).contiguous(), torch.round(frame1).contiguous(),
-            flow0, flow1)
+        fqx, fqy = _apply(bg_pixel_motion, ix[None], iy[None])
+        flow_x = fqx - ix
+        flow_y = fqy - iy
+        if has_warp:
+            mx, my = fqx + cx, fqy + cy
+            wfx, wfy = big_field_at(warp_bank.flow, mx, my)
+            inb = warp & (mx >= 0) & (mx < 2 * W) & (my >= 0) & (my < 2 * H)
+            flow_x = flow_x + torch.where(inb, wfx, torch.zeros_like(wfx))
+            flow_y = flow_y + torch.where(inb, wfy, torch.zeros_like(wfy))
+        flow0 = torch.stack([flow_x, flow_y], -1).contiguous()
+        flow1 = None
+        if cfg.compute_inverse_flow:
+            iqx, iqy = _apply(affine.invert(bg_pixel_motion), ix[None],
+                              iy[None])
+            flow1 = torch.stack([iqx - ix, iqy - iy], -1).contiguous()
+        return (torch.round(frame0).contiguous(),
+                torch.round(frame1).contiguous(), flow0, flow1)
 
 
 def background_flow(scene, cfg: DataGenConfig):
@@ -394,140 +398,151 @@ def render_batch(scenes, atlas_q, cfg: DataGenConfig, warp_bank=None):
 
     frame0, frame1, flow0, flow1 = background_pass(scenes, atlas_q, cfg,
                                                    warp_bank)
-    B = frame0.shape[0]
-    ids = (torch.full((B, 2, H, W), BACKGROUND_OBJ_ID, dtype=torch.int32,
-                      device=dev) if emit_ids else None)
-    classes = tuple(
-        c for c in (WINDOW_CLASSES if cfg.windowed else (None,))
-        if c is None or (c[0] <= H and c[1] <= W))
-    sizes = [c if c is not None else (H, W) for c in classes]
+    with span("flowgen.objects"):
+        B = frame0.shape[0]
+        ids = (torch.full((B, 2, H, W), BACKGROUND_OBJ_ID, dtype=torch.int32,
+                          device=dev) if emit_ids else None)
+        classes = tuple(
+            c for c in (WINDOW_CLASSES if cfg.windowed else (None,))
+            if c is None or (c[0] <= H and c[1] <= W))
+        sizes = [c if c is not None else (H, W) for c in classes]
 
-    prims, objs = scenes.prims, scenes.objects
-    (lo0, hi0), (lo1, hi1) = _all_bboxes(prims, objs.motion)
-    n_prims = prims.valid.sum(-1).to(torch.int32)
-    warping = (objs.warp & objs.valid) if has_warp else torch.zeros_like(
-        objs.valid)
-    margin1 = AA_MARGIN + torch.where(warping, WARP_MARGIN, 0.0)
-    on0 = objs.valid & ~_offscreen(lo0, hi0, AA_MARGIN, H, W)
-    on1 = objs.valid & ~_offscreen(lo1, hi1, margin1, H, W)
-    cls0 = _size_classes(lo0, hi0, AA_MARGIN, classes)
-    cls1 = _size_classes(lo1, hi1, margin1, classes)
-    process = on0 | on1
-    # Compacted painter's order: on-screen objects first, ascending id.
-    order = torch.argsort((~process).to(torch.int8), dim=-1, stable=True)
-    count = process.sum(-1)
+        prims, objs = scenes.prims, scenes.objects
+        (lo0, hi0), (lo1, hi1) = _all_bboxes(prims, objs.motion)
+        n_prims = prims.valid.sum(-1).to(torch.int32)
+        warping = (objs.warp & objs.valid) if has_warp else torch.zeros_like(
+            objs.valid)
+        margin1 = AA_MARGIN + torch.where(warping, WARP_MARGIN, 0.0)
+        on0 = objs.valid & ~_offscreen(lo0, hi0, AA_MARGIN, H, W)
+        on1 = objs.valid & ~_offscreen(lo1, hi1, margin1, H, W)
+        cls0 = _size_classes(lo0, hi0, AA_MARGIN, classes)
+        cls1 = _size_classes(lo1, hi1, margin1, classes)
+        process = on0 | on1
+        # Compacted painter's order: on-screen objects first, ascending id.
+        order = torch.argsort((~process).to(torch.int8), dim=-1, stable=True)
+        count = process.sum(-1)
 
-    def origin(lo, hi, cls):
-        y0 = torch.zeros_like(cls)
-        x0 = torch.zeros_like(cls)
-        for i, (wh, ww) in enumerate(sizes):
-            if (wh, ww) == (H, W):
+        def origin(lo, hi, cls):
+            y0 = torch.zeros_like(cls)
+            x0 = torch.zeros_like(cls)
+            for i, (wh, ww) in enumerate(sizes):
+                if (wh, ww) == (H, W):
+                    continue
+                yy, xx = _window_origin(lo, hi, wh, ww, H, W)
+                y0 = torch.where(cls == i, yy, y0)
+                x0 = torch.where(cls == i, xx, x0)
+            return y0, x0
+
+        org = (origin(lo0, hi0, cls0), origin(lo1, hi1, cls1))
+        composed = warping if use_kernel else torch.ones_like(warping)
+        shifts = torch.arange(prims.valid.shape[-1], device=dev)
+        poly_bits = (prims.is_poly.to(torch.int32) << shifts).sum(-1)
+        per_frame = [torch.stack([on.to(torch.int32), cls,
+                                  composed.to(torch.int32), n_prims,
+                                  poly_bits], -1)
+                     for on, cls in ((on0, cls0), (on1, cls1))]
+        table = torch.gather(torch.stack(per_frame, 2), 1,
+                             order[..., None, None].expand(-1, -1, 2, 5))
+        host = torch.cat([table.reshape(B, -1),
+                          count[:, None].to(torch.int32)], 1).cpu().numpy()
+        plan = _Plan(host[:, :-1].reshape(table.shape), host[:, -1], dev)
+
+        # Objects texture from the deterministic centre crop of their source.
+        crop = ((SH - H) // 2, (SW - W) // 2, H, W)
+        size_tab = torch.tensor(sizes, dtype=torch.int32).to(dev)
+        frames = (frame0, frame1)
+        flows = (flow0, flow1)
+        for step in plan.steps:
+            kind, r, fr = step[:3]
+            sel = plan.rows(step[3])
+            k = order[sel, r]
+            p = map_scene(lambda t: t[sel, k], prims)
+            motion, motion_inv = objs.motion[sel, k], objs.motion_inv[sel, k]
+            y0, x0 = org[fr][0][sel, k], org[fr][1][sel, k]
+            tex = objs.tex_id[sel, k] % T
+            emit_flow = fr == 0 or cfg.compute_inverse_flow
+            if kind == "fused":
+                edges, meta, fmeta = _object_kernel_inputs(
+                    p, motion, motion if fr == 0 else motion_inv, fr,
+                    n_prims[sel, k], x0, y0)
+                dims = size_tab[(cls0, cls1)[fr][sel, k].long()]
+                win = torch.stack([sel.to(torch.int32), dims[:, 0],
+                                   dims[:, 1], tex.to(torch.int32)],
+                                  -1).contiguous()
+                window.object_window(edges, meta, fmeta, win, frames[fr],
+                                     flows[fr], atlas_q, crop=crop,
+                                     sampled=fr == 1,
+                                     use_aa=cfg.use_antialiasing,
+                                     emit_flow=emit_flow,
+                                     max_hw=sizes[step[4]])
                 continue
-            yy, xx = _window_origin(lo, hi, wh, ww, H, W)
-            y0 = torch.where(cls == i, yy, y0)
-            x0 = torch.where(cls == i, xx, x0)
-        return y0, x0
-
-    org = (origin(lo0, hi0, cls0), origin(lo1, hi1, cls1))
-    composed = warping if use_kernel else torch.ones_like(warping)
-    shifts = torch.arange(prims.valid.shape[-1], device=dev)
-    poly_bits = (prims.is_poly.to(torch.int32) << shifts).sum(-1)
-    per_frame = [torch.stack([on.to(torch.int32), cls, composed.to(torch.int32),
-                              n_prims, poly_bits], -1)
-                 for on, cls in ((on0, cls0), (on1, cls1))]
-    table = torch.gather(torch.stack(per_frame, 2), 1,
-                         order[..., None, None].expand(-1, -1, 2, 5))
-    host = torch.cat([table.reshape(B, -1), count[:, None].to(torch.int32)],
-                     1).cpu().numpy()
-    plan = _Plan(host[:, :-1].reshape(table.shape), host[:, -1], dev)
-
-    # Objects texture from the deterministic centre crop of their source.
-    crop = ((SH - H) // 2, (SW - W) // 2, H, W)
-    size_tab = torch.tensor(sizes, dtype=torch.int32).to(dev)
-    frames = (frame0, frame1)
-    flows = (flow0, flow1)
-    for step in plan.steps:
-        kind, r, fr = step[:3]
-        sel = plan.rows(step[3])
-        k = order[sel, r]
-        p = map_scene(lambda t: t[sel, k], prims)
-        motion, motion_inv = objs.motion[sel, k], objs.motion_inv[sel, k]
-        y0, x0 = org[fr][0][sel, k], org[fr][1][sel, k]
-        tex = objs.tex_id[sel, k] % T
-        emit_flow = fr == 0 or cfg.compute_inverse_flow
-        if kind == "fused":
-            edges, meta, fmeta = _object_kernel_inputs(
-                p, motion, motion if fr == 0 else motion_inv, fr,
-                n_prims[sel, k], x0, y0)
-            dims = size_tab[(cls0, cls1)[fr][sel, k].long()]
-            win = torch.stack([sel.to(torch.int32), dims[:, 0], dims[:, 1],
-                               tex.to(torch.int32)], -1).contiguous()
-            window.object_window(edges, meta, fmeta, win, frames[fr],
-                                 flows[fr], atlas_q, crop=crop, sampled=fr == 1,
-                                 use_aa=cfg.use_antialiasing,
-                                 emit_flow=emit_flow, max_hw=sizes[step[4]])
-            continue
-        wh, ww = sizes[step[4]]
-        plan_c = [(plan.rows(live).bool(), plan.rows(polys), plan.rows(ells))
-                  for live, polys, ells in step[5]]
-        tr_all = p.intrinsic if fr == 0 else affine.compose(
-            p.intrinsic, motion[:, None])
-        wpx, wpy = window.window_grids(y0, x0, wh, ww)
-        aa, inside = _frame_coverage(p, tr_all, wpx + 0.5, wpy + 0.5, plan_c,
-                                     use_pallas)
-        bsel = sel[:, None, None]
-        yy = (y0.long()[:, None] + torch.arange(wh, device=dev))[:, :, None]
-        xx = (x0.long()[:, None] + torch.arange(ww, device=dev))[:, None, :]
-        warp_s = warping[sel, k].reshape(-1, 1, 1)
-        slot = objs.warp_slot[sel, k]
-        if fr == 0:
-            tex_w = window.crop_texture(atlas_q, tex, crop, wpx, wpy, False)
-            m = aa if cfg.use_antialiasing else inside.to(torch.float32)
-            frame0[bsel, yy, xx] = torch.round(
-                frame0[bsel, yy, xx] * (1.0 - m[..., None])
-                + tex_w * m[..., None])
-            mvx, mvy = _apply(motion, wpx, wpy)
-            ofx, ofy = mvx - wpx, mvy - wpy
-            if has_warp:
-                wfx, wfy = _bilinear_flow_at(warp_bank.flow, slot, mvx, mvy)
-                inb = ((mvx >= 0) & (mvx < W) & (mvy >= 0) & (mvy < H)
-                       & warp_s)
-                ofx = ofx + torch.where(inb, wfx, torch.zeros_like(wfx))
-                ofy = ofy + torch.where(inb, wfy, torch.zeros_like(wfy))
-            fl = flow0[bsel, yy, xx]
-            flow0[bsel, yy, xx] = torch.where(
-                inside[..., None], torch.stack([ofx, ofy], -1), fl)
-        else:
-            sx, sy = _apply(motion_inv, wpx, wpy)
-            if has_warp:
-                idx, idy = _bilinear_flow_at(warp_bank.iflow, slot, wpx, wpy)
-                wsx, wsy = _apply(motion_inv, wpx + idx, wpy + idy)
-                sx = torch.where(warp_s, wsx, sx)
-                sy = torch.where(warp_s, wsy, sy)
-                cov = torch.stack([aa, inside.to(torch.float32)], -1)
-                cov_w = tex_mod.sample_bilinear(
-                    cov, wpx + idx - x0.to(torch.float32)[:, None, None],
-                    wpy + idy - y0.to(torch.float32)[:, None, None],
-                    wrap="zero")
-                aa = torch.where(warp_s, cov_w[..., 0], aa)
-                inside = torch.where(warp_s, cov_w[..., 1] >= WARP_BINARY_THR,
-                                     inside)
-            tex_w = window.crop_texture(atlas_q, tex, crop, sx, sy, True)
-            m = aa if cfg.use_antialiasing else inside.to(torch.float32)
-            frame1[bsel, yy, xx] = torch.round(
-                frame1[bsel, yy, xx] * (1.0 - m[..., None])
-                + tex_w * m[..., None])
-            if cfg.compute_inverse_flow:
-                imx, imy = _apply(motion_inv, wpx, wpy)
-                fl = flow1[bsel, yy, xx]
-                flow1[bsel, yy, xx] = torch.where(
-                    inside[..., None], torch.stack([imx - wpx, imy - wpy], -1),
-                    fl)
-        if emit_ids:
-            idw = ids[bsel, fr, yy, xx]
-            ids[bsel, fr, yy, xx] = torch.where(
-                inside, (FOREGROUND_ID_BASE + k).to(torch.int32)[:, None, None],
-                idw)
+            wh, ww = sizes[step[4]]
+            plan_c = [(plan.rows(live).bool(), plan.rows(polys),
+                       plan.rows(ells)) for live, polys, ells in step[5]]
+            tr_all = p.intrinsic if fr == 0 else affine.compose(
+                p.intrinsic, motion[:, None])
+            wpx, wpy = window.window_grids(y0, x0, wh, ww)
+            aa, inside = _frame_coverage(p, tr_all, wpx + 0.5, wpy + 0.5,
+                                         plan_c, use_pallas)
+            bsel = sel[:, None, None]
+            yy = (y0.long()[:, None]
+                  + torch.arange(wh, device=dev))[:, :, None]
+            xx = (x0.long()[:, None]
+                  + torch.arange(ww, device=dev))[:, None, :]
+            warp_s = warping[sel, k].reshape(-1, 1, 1)
+            slot = objs.warp_slot[sel, k]
+            if fr == 0:
+                tex_w = window.crop_texture(atlas_q, tex, crop, wpx, wpy,
+                                            False)
+                m = aa if cfg.use_antialiasing else inside.to(torch.float32)
+                frame0[bsel, yy, xx] = torch.round(
+                    frame0[bsel, yy, xx] * (1.0 - m[..., None])
+                    + tex_w * m[..., None])
+                mvx, mvy = _apply(motion, wpx, wpy)
+                ofx, ofy = mvx - wpx, mvy - wpy
+                if has_warp:
+                    wfx, wfy = _bilinear_flow_at(warp_bank.flow, slot, mvx,
+                                                 mvy)
+                    inb = ((mvx >= 0) & (mvx < W) & (mvy >= 0) & (mvy < H)
+                           & warp_s)
+                    ofx = ofx + torch.where(inb, wfx, torch.zeros_like(wfx))
+                    ofy = ofy + torch.where(inb, wfy, torch.zeros_like(wfy))
+                fl = flow0[bsel, yy, xx]
+                flow0[bsel, yy, xx] = torch.where(
+                    inside[..., None], torch.stack([ofx, ofy], -1), fl)
+            else:
+                sx, sy = _apply(motion_inv, wpx, wpy)
+                if has_warp:
+                    idx, idy = _bilinear_flow_at(warp_bank.iflow, slot, wpx,
+                                                 wpy)
+                    wsx, wsy = _apply(motion_inv, wpx + idx, wpy + idy)
+                    sx = torch.where(warp_s, wsx, sx)
+                    sy = torch.where(warp_s, wsy, sy)
+                    cov = torch.stack([aa, inside.to(torch.float32)], -1)
+                    cov_w = tex_mod.sample_bilinear(
+                        cov, wpx + idx - x0.to(torch.float32)[:, None, None],
+                        wpy + idy - y0.to(torch.float32)[:, None, None],
+                        wrap="zero")
+                    aa = torch.where(warp_s, cov_w[..., 0], aa)
+                    inside = torch.where(
+                        warp_s, cov_w[..., 1] >= WARP_BINARY_THR, inside)
+                tex_w = window.crop_texture(atlas_q, tex, crop, sx, sy, True)
+                m = aa if cfg.use_antialiasing else inside.to(torch.float32)
+                frame1[bsel, yy, xx] = torch.round(
+                    frame1[bsel, yy, xx] * (1.0 - m[..., None])
+                    + tex_w * m[..., None])
+                if cfg.compute_inverse_flow:
+                    imx, imy = _apply(motion_inv, wpx, wpy)
+                    fl = flow1[bsel, yy, xx]
+                    flow1[bsel, yy, xx] = torch.where(
+                        inside[..., None],
+                        torch.stack([imx - wpx, imy - wpy], -1), fl)
+            if emit_ids:
+                idw = ids[bsel, fr, yy, xx]
+                ids[bsel, fr, yy, xx] = torch.where(
+                    inside,
+                    (FOREGROUND_ID_BASE + k).to(torch.int32)[:, None, None],
+                    idw)
 
     out = [frame0, frame1, flow0]
     if cfg.compute_inverse_flow:

@@ -30,6 +30,7 @@ import torch
 
 from .. import _fp
 from ..random import streams
+from ..utils.profiling import span
 
 # Fold-in id of the photometric key chain; not a ``Stream`` member (adding
 # one would change the bits-table stride and every scene).
@@ -161,11 +162,14 @@ def augment_batch(root, indices, images0, images1,
     CUDA tensors launch the photometric kernels (the table pass and the
     value pass, one call counted once in ``augment_batch.launches``); CPU
     tensors run :func:`augment_batch_plain`."""
-    if images0.device.type == "cpu":
-        return augment_batch_plain(root, indices, images0, images1, params)
-    if images0.device.type != "cuda":
-        raise ValueError(f"augment_batch: unsupported device {images0.device}")
-    return _augment_cuda(root, indices, images0, images1, params)
+    with span("flowgen.photometric"):
+        if images0.device.type == "cpu":
+            return augment_batch_plain(root, indices, images0, images1,
+                                       params)
+        if images0.device.type != "cuda":
+            raise ValueError(
+                f"augment_batch: unsupported device {images0.device}")
+        return _augment_cuda(root, indices, images0, images1, params)
 
 
 augment_batch.launches = 0

@@ -40,6 +40,7 @@ from . import resample as resamp
 from .._fp import div, f32
 from ..config import BACKGROUND_OBJ_ID as BG_ID
 from ..config import FOREGROUND_ID_BASE as FG_ID_BASE
+from ..utils.profiling import span
 
 # Window tile size: one unit of object evaluation.
 WIN_H = 192
@@ -366,22 +367,24 @@ def scene_render(bg_meta, omi, omf, tmi, tmf, bgm, edges, slabs, bgslabs,
     ``scene_render.launches``); CPU tensors run :func:`scene_render_plain`.
     Returns (frames (B,2,H,W) int32 packed RGB, flow (B,2 or 4,H,W) f32,
     ids (B,2,H,W) int32 or None)."""
-    if spec_key[6] > 1 and warp_aux is not None:
-        raise ValueError("scene_render: texture sub-windows (tsplit > 1) do "
-                         "not combine with the warp branch")
-    if warp_aux is not None:
-        _check_warp_planes(warp_aux, bgaux, spec_key[-2], spec_key[-1])
-    kw = dict(spec_key=spec_key, use_aa=use_aa, bg_only=bg_only,
-              inverse_flow=inverse_flow, emit_masks=emit_masks)
-    if slabs.device.type == "cpu":
-        return scene_render_plain(
-            bg_meta, omi, omf, tmi, tmf, bgm, edges, slabs, bgslabs,
-            worklist, n_units, warp_aux, bgaux, bg_band, **kw)
-    if slabs.device.type != "cuda":
-        raise ValueError(f"scene_render: unsupported device {slabs.device}")
-    return _scene_render_cuda(
-        bg_meta, omi, omf, tmi, tmf, bgm, edges, slabs, bgslabs, worklist,
-        n_units, warp_aux, bgaux, bg_band, **kw)
+    with span("flowgen.scene_kernel"):
+        if spec_key[6] > 1 and warp_aux is not None:
+            raise ValueError("scene_render: texture sub-windows (tsplit > 1) "
+                             "do not combine with the warp branch")
+        if warp_aux is not None:
+            _check_warp_planes(warp_aux, bgaux, spec_key[-2], spec_key[-1])
+        kw = dict(spec_key=spec_key, use_aa=use_aa, bg_only=bg_only,
+                  inverse_flow=inverse_flow, emit_masks=emit_masks)
+        if slabs.device.type == "cpu":
+            return scene_render_plain(
+                bg_meta, omi, omf, tmi, tmf, bgm, edges, slabs, bgslabs,
+                worklist, n_units, warp_aux, bgaux, bg_band, **kw)
+        if slabs.device.type != "cuda":
+            raise ValueError(
+                f"scene_render: unsupported device {slabs.device}")
+        return _scene_render_cuda(
+            bg_meta, omi, omf, tmi, tmf, bgm, edges, slabs, bgslabs, worklist,
+            n_units, warp_aux, bgaux, bg_band, **kw)
 
 
 def _check_warp_planes(warp_aux, bgaux, H, W):

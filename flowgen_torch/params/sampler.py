@@ -33,6 +33,7 @@ from ..config import (
 from ..ops import affine
 from ..random import shapers
 from ..random.streams import ScopeDraws, Stream, sample_bits_table, sample_key
+from ..utils.profiling import span
 from .blueprint import Background, Objects, Primitives, Scene
 
 SEG_DUMMY = 0
@@ -442,10 +443,11 @@ def sample_scene(skeys, spec: ModeSpec, *, width: int, height: int,
 
 def sample_scene_batch(root, sample_indices, cfg: DataGenConfig, n_warp_slots=1):
     """Scene blueprints for a batch of global sample indices."""
-    return sample_scene(
-        sample_key(root, sample_indices),
-        cfg.mode_spec,
-        width=cfg.width,
-        height=cfg.height,
-        n_warp_slots=n_warp_slots,
-    )
+    with span("flowgen.sampler"):
+        return sample_scene(
+            sample_key(root, sample_indices),
+            cfg.mode_spec,
+            width=cfg.width,
+            height=cfg.height,
+            n_warp_slots=n_warp_slots,
+        )

@@ -45,7 +45,7 @@ from ..ops.scene import (
 from ..params.sampler import sample_scene_batch
 from ..random.streams import root_key
 from ..texture_io import TextureDB
-from ..utils.profiling import ThroughputMeter
+from ..utils.profiling import ThroughputMeter, span
 from ..warpfields import generator as warpgen
 
 
@@ -66,25 +66,26 @@ def _adapt_output(images0, images1, flow0, flow1, cfg: DataGenConfig,
                   masks=None):
     """Output-compatibility transforms: BGR channel order, NCHW layout and
     the disparity output of the horizontal-only modes."""
-    if cfg.warp_oob == "nan" and cfg.mode_spec.warp_p > 0.0:
-        # Decode the bank's OOB sentinel back into NaN forward flow.
-        flow0 = torch.where(torch.abs(flow0) > warpgen.OOB_FLOW_THRESH,
-                            torch.full_like(flow0, float("nan")), flow0)
-    if cfg.channel_order == "bgr":
-        images0 = images0.flip(-1)
-        images1 = images1.flip(-1)
-    out = {"image0": images0, "image1": images1, "flow0": flow0}
-    if flow1 is not None:
-        out["flow1"] = flow1
-    if cfg.layout == "nchw":
-        out = {k: v.movedim(-1, 1) for k, v in out.items()}
-    if masks is not None:
-        out["occlusion"], out["motion_boundary"] = masks
-    if cfg.mode_spec.horizontal_only:
-        out["disparity"] = -(
-            flow0[..., 0] if cfg.layout == "nhwc" else out["flow0"][:, 0]
-        )
-    return out
+    with span("flowgen.adapt"):
+        if cfg.warp_oob == "nan" and cfg.mode_spec.warp_p > 0.0:
+            # Decode the bank's OOB sentinel back into NaN forward flow.
+            flow0 = torch.where(torch.abs(flow0) > warpgen.OOB_FLOW_THRESH,
+                                torch.full_like(flow0, float("nan")), flow0)
+        if cfg.channel_order == "bgr":
+            images0 = images0.flip(-1)
+            images1 = images1.flip(-1)
+        out = {"image0": images0, "image1": images1, "flow0": flow0}
+        if flow1 is not None:
+            out["flow1"] = flow1
+        if cfg.layout == "nchw":
+            out = {k: v.movedim(-1, 1) for k, v in out.items()}
+        if masks is not None:
+            out["occlusion"], out["motion_boundary"] = masks
+        if cfg.mode_spec.horizontal_only:
+            out["disparity"] = -(
+                flow0[..., 0] if cfg.layout == "nhwc" else out["flow0"][:, 0]
+            )
+        return out
 
 
 def _as_u8(atlas) -> torch.Tensor:
@@ -304,7 +305,8 @@ class BankEpochCache:
                 c["val"] = c.pop("next_val")
                 del c["next_epoch"]
             else:
-                c["val"] = self._build(root, epoch[1] * self._reuse)
+                with span("flowgen.bank_epoch", "demand"):
+                    c["val"] = self._build(root, epoch[1] * self._reuse)
             c["epoch"] = epoch
         return c["val"]
 
@@ -312,7 +314,8 @@ class BankEpochCache:
         c, reuse = self._for_root(root), self._reuse
         nxt = (self._stream, int(step) // reuse + 1)
         if int(step) % reuse == reuse - 1 and c.get("next_epoch") != nxt:
-            c["next_val"] = self._build(root, nxt[1] * reuse)
+            with span("flowgen.bank_epoch", "ahead"):
+                c["next_val"] = self._build(root, nxt[1] * reuse)
             c["next_epoch"] = nxt
 
 
@@ -498,7 +501,8 @@ class Generator:
         return self
 
     def _dispatch(self):
-        out = self._fn(self._root, self._step, self._atlas)
+        with span("flowgen.step", str(self._step)):
+            out = self._fn(self._root, self._step, self._atlas)
         self._step += 1
         return out
 

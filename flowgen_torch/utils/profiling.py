@@ -2,8 +2,9 @@
 ``flowgen/utils/profiling.py``).
 
 A samples/sec meter, a synchronization that waits for the device by reading
-one value back, a ``torch.profiler`` trace written as a Chrome trace, a
-best-of-N timer, and the kernel build cache's location."""
+one value back, a ``torch.profiler`` trace written as a Chrome trace, the
+spans that name the program's layers in such a trace, and the kernel build
+cache's location."""
 
 from __future__ import annotations
 
@@ -64,11 +65,34 @@ class ThroughputMeter:
         return sum(self._counts[1:]) / max(dt, 1e-9)
 
 
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str, arg: str | None = None):
+    """A context naming a stretch of the program in a ``torch.profiler``
+    trace: while a profiler runs, ``record_function(name, arg)``, which the
+    trace holds as a ``user_annotation`` event on the clock of the CUDA
+    calls and kernels launched inside it; otherwise one shared null
+    context, so the spans cost a check (well under a microsecond) when no
+    profile is taken."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name, arg)
+    return _OFF
+
+
 @contextlib.contextmanager
 def trace(log_dir: str):
     """Profile the block with ``torch.profiler`` (CPU activity, and CUDA
     where a card is present) and write a Chrome trace,
-    ``log_dir/trace.json`` (open it in Perfetto or chrome://tracing)."""
+    ``log_dir/trace.json`` (open it in Perfetto or chrome://tracing). The
+    program's :func:`span` events name its layers there: ``flowgen.step``
+    (one ``Generator`` step, its index as argument) holds
+    ``flowgen.sampler``, ``flowgen.precompute``, ``flowgen.scene_kernel``,
+    ``flowgen.unpack`` (with ``flowgen.masks``), ``flowgen.photometric`` and
+    ``flowgen.adapt``, or on the windowed renderer
+    ``flowgen.background_pass`` and ``flowgen.objects``; mode 9's bank
+    epochs build under ``flowgen.bank_epoch`` (argument ``demand`` or
+    ``ahead``)."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -76,16 +100,3 @@ def trace(log_dir: str):
     with torch.profiler.profile(activities=acts) as prof:
         yield log_dir
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-def timed(fn, *args, iters: int = 5, warmup: int = 1) -> float:
-    """Best seconds per call of ``fn(*args)``, each call ended by
-    :func:`force_sync` on its result."""
-    for _ in range(warmup):
-        force_sync(fn(*args))
-    best = float("inf")
-    for _ in range(iters):
-        t0 = time.perf_counter()
-        force_sync(fn(*args))
-        best = min(best, time.perf_counter() - t0)
-    return best

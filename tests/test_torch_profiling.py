@@ -55,17 +55,6 @@ def test_force_sync_reads_the_first_value():
             == jprof.force_sync({"x": jnp.asarray([1.25])}))
 
 
-def test_timed_returns_the_best_time():
-    calls = []
-
-    def fn(x):
-        calls.append(x)
-        return {"y": torch.ones(4) * x}
-
-    best = tprof.timed(fn, 2.0, iters=3, warmup=2)
-    assert len(calls) == 5 and 0.0 < best < 5.0
-
-
 def test_trace_writes_a_chrome_trace(tmp_path):
     d = tmp_path / "trace"
     with tprof.trace(str(d)) as log_dir:

@@ -52,7 +52,8 @@ def one(root: str, mode: int, cpu: bool = False):
         if cuda:
             torch.cuda.synchronize()
     gen.stop()
-    events = prof.key_averages()
+    # Not the program's spans (utils/profiling.py:span): they launch nothing.
+    events = [e for e in prof.key_averages() if not e.is_user_annotation]
     print(json.dumps({
         "root": root, "mode": mode,
         "cuda_kernels_per_step": sum(e.count for e in events
