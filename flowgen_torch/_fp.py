@@ -16,6 +16,22 @@ import numpy as np
 import torch
 
 
+_CONSTS: dict = {}
+
+
+def const(key, device, make):
+    """The tensor that ``make()`` builds from host data, moved to ``device``
+    once per ``(key, device)`` and kept: later calls return the same tensor,
+    so a function that needs a constant makes no host-to-device copy (each
+    of which waits for the device) after its first call, and can be
+    captured in a CUDA graph. Callers only read it."""
+    k = (key, torch.device(device))
+    t = _CONSTS.get(k)
+    if t is None:
+        t = _CONSTS[k] = make().to(device)
+    return t
+
+
 def f32(x) -> float:
     """A Python float rounded to float32, as JAX rounds a weakly typed
     constant before it meets a float32 array (comparisons included)."""
@@ -279,7 +295,8 @@ def pow(x, y):
     top = tmp & 0xFF800000
     z = ((ix - top) & 0xFFFFFFFF).to(torch.int32).view(torch.float32).double()
     k = (top - (top & 0x80000000) * 2) >> 23       # arithmetic shift of int32
-    tab = torch.tensor(_POW_LOG2_TAB, dtype=torch.float64, device=dev)
+    tab = const("pow_log2", dev,
+                lambda: torch.tensor(_POW_LOG2_TAB, dtype=torch.float64))
     invc, logc = tab[i, 0], tab[i, 1]
     a = _POW_LOG2_POLY
     r = z * invc - 1.0
@@ -298,7 +315,8 @@ def pow(x, y):
     kd = (ylogx + _POW_EXP2_SHIFT) - _POW_EXP2_SHIFT
     r = ylogx - kd
     ki = (kd * 32.0).to(torch.int64)
-    e2 = torch.tensor(_POW_EXP2_TAB, dtype=torch.int64, device=dev)
+    e2 = const("pow_exp2", dev,
+               lambda: torch.tensor(_POW_EXP2_TAB, dtype=torch.int64))
     s = (e2[ki & 31] + ki * (1 << 47)).view(torch.float64)
     c = _POW_EXP2_POLY
     zz = c[0] * r + c[1]

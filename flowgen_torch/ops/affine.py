@@ -12,14 +12,17 @@ from __future__ import annotations
 
 import torch
 
-from .._fp import cos, div, sin
+from .._fp import const, cos, div, sin
 
 
 def _t(x, like=None):
+    """``x`` as a float32 tensor; a Python number becomes a shared constant
+    on ``like``'s device (the CPU without ``like``)."""
     if torch.is_tensor(x):
         return x.to(torch.float32)
-    dev = like.device if like is not None else "cpu"
-    return torch.tensor(float(x), dtype=torch.float32, device=dev)
+    x = float(x)
+    return const(("f32", x.hex()), like.device if like is not None else "cpu",
+                 lambda: torch.tensor(x, dtype=torch.float32))
 
 
 def identity(device="cpu"):

@@ -12,11 +12,12 @@ gather where the JAX package uses a one-hot matrix product.
 from __future__ import annotations
 
 import math
+import threading
 
 import numpy as np
 import torch
 
-from .._fp import cos, div, f32, sin
+from .._fp import const, cos, div, f32, sin
 from ..config import (
     EDGE_SUBDIV,
     ELLIPSE_STEPS,
@@ -34,7 +35,7 @@ from ..ops import affine
 from ..random import shapers
 from ..random.streams import ScopeDraws, Stream, sample_bits_table, sample_key
 from ..utils.profiling import span
-from .blueprint import Background, Objects, Primitives, Scene
+from .blueprint import Background, Objects, Primitives, Scene, map_scene
 
 SEG_DUMMY = 0
 SEG_LINE = 1
@@ -47,7 +48,8 @@ _SUB_T = np.arange(EDGE_SUBDIV, dtype=np.float32) / np.float32(EDGE_SUBDIV)
 def _where(c, a, b):
     """``jnp.where`` with Python-scalar branches allowed on either side."""
     if not torch.is_tensor(a):
-        a = torch.full_like(b, a) if torch.is_tensor(b) else torch.tensor(a)
+        a = (torch.full_like(b, a) if torch.is_tensor(b)
+             else torch.full((), a, device=c.device))
     if not torch.is_tensor(b):
         b = torch.full_like(a, b)
     return torch.where(c, a, b)
@@ -88,9 +90,8 @@ def _sample_spoke_polygon(d: ScopeDraws, spec: ModeSpec):
         # Mode 1: fixed 4-spoke axis-aligned rectangle (cpp:2163-2183).
         x = r[..., 0] * xs
         y = r[..., 0] * ys
-        sgn = torch.tensor(
-            [[1.0, -1.0], [1.0, 1.0], [-1.0, 1.0], [-1.0, -1.0]], device=dev
-        )
+        sgn = const("rect_signs", dev, lambda: torch.tensor(
+            [[1.0, -1.0], [1.0, 1.0], [-1.0, 1.0], [-1.0, -1.0]]))
         rect = sgn * torch.stack([x, y], -1)[..., None, :]
         verts = torch.zeros_like(verts)
         verts[..., :4, :] = rect
@@ -155,7 +156,7 @@ def flatten_outline(verts, types, n):
     ta = torch.where(last, types[..., 0:1], torch.roll(types, -1, dims=-1))
     a_nonzero = ~last
 
-    t = torch.from_numpy(_SUB_T).to(dev)[:, None]         # (SUB, 1)
+    t = const("sub_t", dev, lambda: torch.from_numpy(_SUB_T))[:, None]
 
     def bezier(p0, c, p1, s):
         p0, c, p1 = p0[..., None, :], c[..., None, :], p1[..., None, :]
@@ -196,7 +197,9 @@ def flatten_outline(verts, types, n):
 def _sample_geometry(d: ScopeDraws, spec: ModeSpec, kinds):
     """One primitive's kind, ellipse radii and flattened outline."""
     kind = shapers.choice(
-        torch.tensor(kinds, dtype=torch.int32), d.raw_index(Stream.OBJ_TYPE)
+        const(("kinds", kinds), d.row.device,
+              lambda: torch.tensor(kinds, dtype=torch.int32)),
+        d.raw_index(Stream.OBJ_TYPE),
     )
     f = spec.ellipse_radius_factor
     rx = d.uniform(Stream.ELLI_SCALE_X, *spec.ellipse_scale_range) * f
@@ -235,11 +238,13 @@ def sample_background(d: ScopeDraws, spec: ModeSpec, width, height,
     tex_rot = d.uniform(Stream.BG_INIT_ROT, *spec.bg_init_rot_range)
     tex_zoom = d.uniform(Stream.BG_INIT_SCALE, *spec.bg_init_scale_range)
     shift_x = shapers.choice(
-        torch.tensor([0.0, float(width)], device=dev),
+        const(("bg_shift", float(width)), dev,
+              lambda: torch.tensor([0.0, float(width)])),
         d.raw_index(Stream.BG_INIT_TRANS_X),
     )
     shift_y = shapers.choice(
-        torch.tensor([0.0, float(height)], device=dev),
+        const(("bg_shift", float(height)), dev,
+              lambda: torch.tensor([0.0, float(height)])),
         d.raw_index(Stream.BG_INIT_TRANS_Y),
     )
     warp = shapers.trigger(
@@ -280,7 +285,6 @@ def sample_scene(skeys, spec: ModeSpec, *, width: int, height: int,
     non_composite = tuple(k for k in spec.obj_types if k != KIND_COMPOSITE)
 
     obj_kind, s_rx, s_ry, s_pts, s_ne = _sample_geometry(ok, spec, spec.obj_types)
-    obj_kind = obj_kind.to(dev)
     is_comp = obj_kind == KIND_COMPOSITE
 
     init_rot = ok.uniform(Stream.OBJ_INIT_ROT, *spec.obj_init_rot_range)
@@ -310,7 +314,6 @@ def sample_scene(skeys, spec: ModeSpec, *, width: int, height: int,
 
     # --- component-slot geometry (used when the object is a composite) ---
     c_kind, c_rx, c_ry, c_pts, c_ne = _sample_geometry(ck, spec, non_composite)
-    c_kind = c_kind.to(dev)
     c_init_rot = ck.uniform(Stream.OBJ_INIT_ROT, *spec.obj_init_rot_range)
     off_x = ck.uniform(Stream.COMP_OFFSET, *spec.component_offset_range)
     off_y = ck.uniform(Stream.COMP_OFFSET_Y, *spec.component_offset_range)
@@ -366,7 +369,8 @@ def sample_scene(skeys, spec: ModeSpec, *, width: int, height: int,
     simple_valid = (cs == 0).expand(reg_valid.shape)
     simple_rx = torch.where(needle, s_rx * f32(spec.thin_shrink), s_rx)
     one = torch.ones(2, device=dev)
-    nshrink = torch.tensor([f32(spec.thin_shrink), 1.0], device=dev)
+    nshrink = const(("needle_shrink", f32(spec.thin_shrink)), dev,
+                    lambda: torch.tensor([f32(spec.thin_shrink), 1.0]))
     simple_pts = s_pts * torch.where(needle[..., None, None], nshrink, one)
     # Thin needle ellipses take the literal 100-gon polygon path.
     ell_needle = needle & (obj_kind == KIND_ELLIPSE)
@@ -441,13 +445,111 @@ def sample_scene(skeys, spec: ModeSpec, *, width: int, height: int,
     return Scene(background=bg, objects=objects, prims=prims, n_objects=n_objects)
 
 
+# ---------------------------------------------------------------------------
+# The batch entry point: one CUDA graph per (device, mode, frame, slots, batch)
+# ---------------------------------------------------------------------------
+
+_GRAPHS: dict = {}
+_GRAPH_LOCK = threading.Lock()
+_GRAPH_STATS = {"capture": 0, "replay": 0, "eager": 0}
+
+
+class _SamplerGraph:
+    """``run(root, indices)`` captured once in a CUDA graph whose static
+    inputs are the root key (2,) and the sample indices (B,), int64 on the
+    device. The first call warms ``run`` up eagerly on a side stream (which
+    also fills the constant caches it reads) and captures it there; every
+    call copies its inputs in, replays the graph on the current stream and
+    returns clones of the graph's outputs, which the next replay
+    overwrites. The replayed kernels are the eager ones on the same inputs,
+    so the scenes are the eager scenes bit for bit."""
+
+    def __init__(self, dev, n, run):
+        self.dev = dev
+        self.run = run
+        self.root = torch.empty(2, dtype=torch.int64, device=dev)
+        self.idx = torch.empty(n, dtype=torch.int64, device=dev)
+        self.graph = None
+        self.out = None
+        # Recorded after each call's clones, so that a call on another
+        # stream does not overwrite inputs or outputs still being read.
+        self.done = torch.cuda.Event()
+
+    def __call__(self, root, sample_indices):
+        with torch.cuda.device(self.dev):
+            cur = torch.cuda.current_stream()
+            cur.wait_event(self.done)
+            self.root.copy_(root)
+            self.idx.copy_(torch.as_tensor(sample_indices))
+            if self.graph is None:
+                self._capture(cur)
+            self.graph.replay()
+            out = map_scene(torch.clone, self.out)
+            self.done.record(cur)
+            return out
+
+    def _capture(self, cur):
+        side = torch.cuda.Stream()
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            self.run(self.root, self.idx)
+        cur.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side,
+                              capture_error_mode="thread_local"):
+            self.out = self.run(self.root, self.idx)
+        self.graph = graph
+
+
+def _graph_key(root, sample_indices, cfg: DataGenConfig, n_warp_slots):
+    """The key of the sampler's graph for these inputs, or None where the
+    call runs eagerly: a root that is not one (2,) int64 key on a CUDA
+    device, indices that are not one batch, or a stream that is itself
+    being captured."""
+    if not (torch.is_tensor(root) and root.is_cuda and root.shape == (2,)
+            and root.dtype == torch.int64):
+        return None
+    shape = (tuple(sample_indices.shape) if torch.is_tensor(sample_indices)
+             else np.shape(sample_indices))
+    if len(shape) != 1 or torch.cuda.is_current_stream_capturing():
+        return None
+    return (root.device, cfg.mode_spec, cfg.width, cfg.height, n_warp_slots,
+            shape[0])
+
+
+def sampler_graph_stats() -> dict:
+    """How often :func:`sample_scene_batch` captured a graph, replayed one
+    and ran eagerly, since the process started."""
+    with _GRAPH_LOCK:
+        return dict(_GRAPH_STATS)
+
+
 def sample_scene_batch(root, sample_indices, cfg: DataGenConfig, n_warp_slots=1):
-    """Scene blueprints for a batch of global sample indices."""
-    with span("flowgen.sampler"):
-        return sample_scene(
-            sample_key(root, sample_indices),
-            cfg.mode_spec,
-            width=cfg.width,
-            height=cfg.height,
-            n_warp_slots=n_warp_slots,
-        )
+    """Scene blueprints for a batch of global sample indices.
+
+    On a CUDA device the sampler's few thousand small launches replay from
+    one CUDA graph per (device, mode, frame, warp slots, batch size)
+    (:class:`_SamplerGraph`), captured on the key's first call; elsewhere
+    the sampler runs eagerly. The ``flowgen.sampler`` span's argument says
+    which: ``capture``, ``replay`` or ``eager``."""
+
+    def run(r, idx):
+        return sample_scene(sample_key(r, idx), cfg.mode_spec,
+                            width=cfg.width, height=cfg.height,
+                            n_warp_slots=n_warp_slots)
+
+    key = _graph_key(root, sample_indices, cfg, n_warp_slots)
+    if key is None:
+        with span("flowgen.sampler", "eager"):
+            with _GRAPH_LOCK:
+                _GRAPH_STATS["eager"] += 1
+            return run(root, sample_indices)
+    with _GRAPH_LOCK:
+        graph = _GRAPHS.get(key)
+        how = "capture" if graph is None else "replay"
+        with span("flowgen.sampler", how):
+            _GRAPH_STATS[how] += 1
+            if graph is None:
+                graph = _GRAPHS[key] = _SamplerGraph(root.device, key[-1],
+                                                     run)
+            return graph(root, sample_indices)

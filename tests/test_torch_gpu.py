@@ -766,3 +766,150 @@ def test_flownet_forward_cuda_matches_cpu():
         torch.backends.cudnn.allow_tf32 = prev
     for g, w in zip(got, want):
         torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The sampler's CUDA graph (params/sampler.py:_SamplerGraph)
+# ---------------------------------------------------------------------------
+
+
+def _scene_leaves(scene):
+    from flowgen_torch.params.blueprint import map_scene
+
+    out = []
+    map_scene(out.append, scene)
+    return out
+
+
+def _assert_bitwise_equal(got, want):
+    for g, w in zip(_scene_leaves(got), _scene_leaves(want), strict=True):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g.contiguous().view(torch.uint8),
+                           w.contiguous().view(torch.uint8))
+
+
+def _eager_scenes(root, idx, cfg, slots):
+    from flowgen_torch.params.sampler import sample_scene
+    from flowgen_torch.random.streams import sample_key
+
+    return sample_scene(sample_key(root, idx), cfg.mode_spec,
+                        width=cfg.width, height=cfg.height,
+                        n_warp_slots=slots)
+
+
+@pytest.mark.parametrize("mode,width,height,batch,steps", [
+    (7, 512, 384, 8, 6), (9, 512, 384, 8, 3), (1, 256, 192, 4, 3),
+    (7, 1024, 436, 4, 3),
+], ids=["mode7", "mode9", "mode1", "frame_1024x436"])
+def test_sampler_graph_replays_eager_scenes(mode, width, height, batch,
+                                            steps):
+    """The graph's scenes equal the eager sampler's bit for bit, step after
+    step and under two roots (so its static inputs take each call's
+    values), in mode 9 with its bank's warp slots, mode 1's rectangles and
+    a frame that is no multiple of (8, 128); a scene returned by one call
+    is unchanged after the next."""
+    _need_card()
+    from flowgen_torch.warpfields.generator import bank_size
+
+    dev = torch.device("cuda")
+    cfg = flowgen_torch.DataGenConfig(mode=mode, batch_size=batch,
+                                      width=width, height=height)
+    slots = bank_size(cfg) if cfg.mode_spec.warp_p > 0.0 else 1
+    assert mode != 9 or slots > 1
+    held = None
+    for seed in (11, 2**31 + 7):
+        root = root_key(seed, dev)
+        for step in range(steps):
+            idx = step * batch + torch.arange(batch, device=dev)
+            got = sample_scene_batch(root, idx, cfg, n_warp_slots=slots)
+            _assert_bitwise_equal(got, _eager_scenes(root, idx, cfg, slots))
+            if held is None:
+                held = (got, [t.clone() for t in _scene_leaves(got)])
+    for a, b in zip(_scene_leaves(held[0]), held[1]):
+        assert torch.equal(a, b)
+
+
+def test_sampler_graph_counts_one_capture_per_key():
+    """A key's first call captures and every later one replays; host
+    indices (a list) are taken too."""
+    _need_card()
+    from flowgen_torch.params.sampler import sampler_graph_stats
+
+    dev = torch.device("cuda")
+    cfg = flowgen_torch.DataGenConfig(mode=7, batch_size=3, width=256,
+                                      height=160)
+    root = root_key(4, dev)
+    before = sampler_graph_stats()
+    for step in range(5):
+        got = sample_scene_batch(root, [3 * step, 3 * step + 1, 3 * step + 2],
+                                 cfg)
+    after = sampler_graph_stats()
+    assert {k: after[k] - before[k] for k in after} == {
+        "capture": 1, "replay": 4, "eager": 0}
+    _assert_bitwise_equal(
+        got, _eager_scenes(root, torch.arange(12, 15, device=dev), cfg, 1))
+
+
+@pytest.mark.parametrize("mode", [1, 7, 9])
+def test_warm_eager_sampler_does_not_synchronize(mode):
+    """After one call, the eager sampler on the card makes no call that
+    waits for the device (no host-to-device copy of host data): what makes
+    it capturable."""
+    _need_card()
+    dev = torch.device("cuda")
+    cfg = flowgen_torch.DataGenConfig(mode=mode, batch_size=4, width=256,
+                                      height=192)
+    root, idx = root_key(9, dev), torch.arange(4, device=dev)
+    _eager_scenes(root, idx, cfg, 3)
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _eager_scenes(root, idx, cfg, 3)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+def test_sampler_graph_shared_by_threads():
+    """Eight threads, half of them on streams of their own, share one key's
+    graph under a short switch interval: every scene equals the eager
+    one."""
+    _need_card()
+    import contextlib
+    import sys
+    import threading
+
+    dev = torch.device("cuda")
+    cfg = flowgen_torch.DataGenConfig(mode=7, batch_size=4, width=256,
+                                      height=128)
+    root = root_key(21, dev)
+    idx = [4 * i + torch.arange(4, device=dev) for i in range(16)]
+    want = [_eager_scenes(root, ix, cfg, 1) for ix in idx]
+    torch.cuda.synchronize()
+    got, errors = {}, []
+
+    def work(t):
+        try:
+            ctx = (torch.cuda.stream(torch.cuda.Stream()) if t % 2
+                   else contextlib.nullcontext())
+            with ctx:
+                for i in range(t, 16, 8):
+                    got[i] = sample_scene_batch(root, idx[i], cfg)
+                torch.cuda.current_stream().synchronize()
+        except Exception as e:  # reported below, with the thread's number
+            errors.append((t, e))
+
+    prev = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(t,)) for t in range(8)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+    finally:
+        sys.setswitchinterval(prev)
+    assert not any(th.is_alive() for th in threads)
+    assert errors == []
+    torch.cuda.synchronize()
+    for i in range(16):
+        _assert_bitwise_equal(got[i], want[i])

@@ -92,3 +92,59 @@ def test_flatten_outline_matches():
                                        torch.tensor(n, dtype=torch.int32))
         assert int(tn) == int(jn)
         np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=0, atol=1e-5)
+
+
+def test_cpu_batch_stays_eager():
+    """On the CPU ``sample_scene_batch`` runs the sampler eagerly: the
+    counters see one eager call and no graph, and the scenes are the JAX
+    package's."""
+    before = tsamp.sampler_graph_stats()
+    leaves = _leaves(7, seed=77, base=40)
+    after = tsamp.sampler_graph_stats()
+    assert {k: after[k] - before[k] for k in after} == {
+        "capture": 0, "replay": 0, "eager": 1}
+    for name, a, b in leaves:
+        np.testing.assert_array_equal(b.astype(a.dtype), a, err_msg=name)
+
+
+def _moves_device(self, *args, **kwargs):
+    return "device" in kwargs or any(
+        isinstance(a, (torch.device, str)) or torch.is_tensor(a) for a in args)
+
+
+@pytest.mark.parametrize("mode,slots", [(1, 1), (7, 1), (9, 6)])
+def test_warm_sampler_makes_no_tensor_from_host_data(monkeypatch, mode, slots):
+    """After one call, a second call of the sampler builds no tensor from
+    host data and moves none between devices: on a card each such tensor
+    is a host-to-device copy that waits for the device, which a CUDA graph
+    cannot capture."""
+    cfg = flowgen_torch.DataGenConfig(mode=mode, batch_size=B, width=W,
+                                      height=H)
+    root, idx = t_root(5), torch.arange(B) + 8
+
+    def sample():
+        return tsamp.sample_scene_batch(root, idx, cfg, n_warp_slots=slots)
+
+    want = sample()
+    counts = {}
+
+    def counting(name, fn, when=lambda *a, **k: True):
+        def wrapped(*args, **kwargs):
+            if when(*args, **kwargs):
+                counts[name] = counts.get(name, 0) + 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    monkeypatch.setattr(torch, "tensor", counting("tensor", torch.tensor))
+    monkeypatch.setattr(torch, "as_tensor", counting(
+        "as_tensor", torch.as_tensor, lambda x, *a, **k: not torch.is_tensor(x)))
+    monkeypatch.setattr(torch, "from_numpy",
+                        counting("from_numpy", torch.from_numpy))
+    monkeypatch.setattr(torch.Tensor, "to",
+                        counting("to", torch.Tensor.to, _moves_device))
+    got = sample()
+    monkeypatch.undo()
+    assert counts == {}
+    for a, b in zip(jax.tree_util.tree_leaves(want),
+                    jax.tree_util.tree_leaves(got)):
+        assert torch.equal(a, b)

@@ -12,6 +12,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import flowgen_torch
 from flowgen_torch.pipeline.generator import BankEpochCache
+from flowgen_torch.random import streams
 from flowgen_torch.utils import profiling
 
 torch.set_num_threads(1)
@@ -107,9 +108,11 @@ def _bank_epochs():
 
 def _two_steps(layers):
     """The spans of a first request's two steps (steps 0 and 1), each a
-    ``flowgen.step`` holding ``layers`` as (name, enclosing span)."""
+    ``flowgen.step`` holding ``layers`` as (name, enclosing span); the
+    sampler's span carries its argument, ``eager`` on the CPU."""
+    arg = {"flowgen.sampler": "eager"}
     return [s for step in ("0", "1") for s in
-            [(STEP, step, None)] + [(n, None, p) for n, p in layers]]
+            [(STEP, step, None)] + [(n, arg.get(n), p) for n, p in layers]]
 
 
 @pytest.mark.parametrize("run,want", [
@@ -150,3 +153,44 @@ def test_no_profiler_means_no_record_function(monkeypatch):
     with profile(activities=[ProfilerActivity.CPU]):
         with pytest.raises(AssertionError, match="no profiler"):
             profiling.span("flowgen.step")
+
+
+class _EagerGraph:
+    """Stands in for ``sampler._SamplerGraph`` on the CPU: runs eagerly."""
+
+    def __init__(self, dev, n, run):
+        self.run = run
+
+    def __call__(self, root, sample_indices):
+        return self.run(root, sample_indices)
+
+
+@pytest.mark.parametrize("graph", [False, True], ids=["eager", "graph"])
+def test_sampler_span_carries_how_it_ran(recorder, monkeypatch, graph):
+    """The ``flowgen.sampler`` span's argument and the sampler's counters
+    say how each call ran: ``eager`` on the CPU; where a graph serves the
+    call (stood in for here, as the CPU has none), ``capture`` on its key's
+    first call and ``replay`` on every later one."""
+    from flowgen_torch.params import sampler
+
+    if graph:
+        monkeypatch.setattr(sampler, "_GRAPHS", {})
+        monkeypatch.setattr(sampler, "_SamplerGraph", _EagerGraph)
+        monkeypatch.setattr(sampler, "_graph_key",
+                            lambda root, idx, cfg, slots: ("key", len(idx)))
+    cfg = flowgen_torch.DataGenConfig(mode=7, batch_size=2, width=128,
+                                      height=96)
+    root = streams.root_key(3)
+    before = sampler.sampler_graph_stats()
+    scenes = [sampler.sample_scene_batch(root, torch.arange(2) + 2 * i, cfg)
+              for i in range(3)]
+    after = sampler.sampler_graph_stats()
+    how = ["capture", "replay", "replay"] if graph else ["eager"] * 3
+    assert recorder.spans == [("flowgen.sampler", h, None) for h in how]
+    assert {k: after[k] - before[k] for k in after} == {
+        k: how.count(k) for k in ("capture", "replay", "eager")}
+    want = sampler.sample_scene(
+        streams.sample_key(root, torch.arange(4, 6)), cfg.mode_spec,
+        width=128, height=96)
+    for a, b in zip(want.prims, scenes[2].prims):
+        assert torch.equal(a, b)
