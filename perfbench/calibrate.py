@@ -7,8 +7,8 @@ cell's own size, in one process:
 For each of ``--seeds``: a run of the cell (``run.run_cell``) with a short
 window, whose compared numbers are the program's (the lower readings).
 For each of ``--control-seeds``: the control in the program's place, the
-reference computed with every per-pixel value in bfloat16
-(``reference.render_rows(lowp=True)``), against the reference itself on the
+configuration's reference module rendering with ``lowp=True`` (``rigid``:
+every per-pixel value in bfloat16), against the reference itself on the
 rows a run of that seed compares (the upper readings). One JSON line each.
 """
 
@@ -50,8 +50,7 @@ def control_rows(cell: Cell, seed: int, batches: int):
 
 def control(cell: Cell, seed: int, device, batches: int = 300) -> dict:
     """The control's compared numbers for ``seed``."""
-    from perfbench import reference
-
+    reference = cell.reference()
     settings = cell.generator_settings(seed)
     atlas = procedural_atlas(int(cell.config["atlas"]["textures"]),
                              2 * settings["height"], 2 * settings["width"],

@@ -10,7 +10,10 @@ is a file of its own under this directory, found by that name:
   the check compares);
 - ``limits/<cell>.json``: the limit of each number the check compares;
 - ``metrics/<metric>.py``: the reader of one per-layer metric, a
-  ``read(record)`` function that returns a number or None.
+  ``read(record)`` function that returns a number or None;
+- ``reference/<name>.py``, the module ``perfbench.reference.<name>``: the
+  plain reference that renders a configuration, named by its
+  ``reference`` key (``rigid`` without one).
 
 A later cell, configuration, mix or metric is added as new files and new
 entries, with no file here edited.
@@ -18,6 +21,7 @@ entries, with no file here edited.
 
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import json
 import re
@@ -26,6 +30,8 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 BENCHMARK = HERE.parent / "BENCHMARK.json"
 _NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+# What every reference module exposes (``reference/__init__.py``).
+REFERENCE_API = ("check_supported", "render_rows")
 
 
 def _checked(name: str) -> str:
@@ -59,6 +65,7 @@ class Cell:
         self.traffic = load_json(
             self.base / "traffic" / f"{_checked(self.entry['traffic'])}.json")
         self.limits = load_json(self.base / "limits" / f"{_checked(name)}.json")
+        self.reference()
 
     def generator_settings(self, seed: int) -> dict:
         """The program's configuration values by name: the configuration's,
@@ -80,6 +87,26 @@ class Cell:
     def per_layer(self):
         """This cell's per-layer metric entries."""
         return self._metrics("per_layer")
+
+    def reference(self):
+        """The module ``perfbench.reference.<name>`` that the configuration's
+        ``reference`` key names (``rigid`` without one). Raises
+        ``ValueError`` where there is no such module or it lacks one of
+        :data:`REFERENCE_API`."""
+        name = _checked(self.config.get("reference", "rigid"))
+        full = f"perfbench.reference.{name}"
+        try:
+            mod = importlib.import_module(full)
+        except ModuleNotFoundError as e:
+            if e.name != full and not full.startswith(f"{e.name}."):
+                raise
+            raise ValueError(f"configuration {self.config.get('name')!r}: no "
+                             f"reference module {full}") from e
+        missing = [f for f in REFERENCE_API
+                   if not callable(getattr(mod, f, None))]
+        if missing:
+            raise ValueError(f"reference module {full} lacks {missing}")
+        return mod
 
     def reader(self, metric: str):
         """The ``read`` function of ``metrics/<metric>.py``."""

@@ -2,12 +2,19 @@
 produced, drawn from the seed, against the reference's rendering of the
 same global sample indices.
 
-Two numbers are compared, each against its limit (``limits/<cell>.json``):
+Every output the reference returns is compared, by its kind, and each
+number against its limit (``limits/<cell>.json``):
 
-- ``flow_max_px``: the largest absolute difference of any flow value, in
-  pixels (a NaN on either side counts as infinite);
+- ``flow_max_px``: the largest absolute difference of any flow value
+  (``flow0``, ``flow1``), in pixels (a NaN on either side counts as
+  infinite);
 - ``image_share_ge1``: the share of image values (both frames, every
-  channel) that lie one level or more apart.
+  channel) that lie one level or more apart;
+- ``int_mismatch_share``: the share of values of the integer or boolean
+  outputs (ids, masks) that differ at all; emitted only where the
+  reference returns such an output.
+
+An output of another kind has no rule, and ``numbers`` raises for it.
 """
 
 from __future__ import annotations
@@ -80,22 +87,37 @@ def numbers(prog: Dict[str, torch.Tensor],
             ref: Dict[str, torch.Tensor]) -> Dict[str, float]:
     """The compared numbers of the program's rows ``prog`` against the
     reference's ``ref``, which names the outputs due. An output missing
-    from ``prog`` or of another shape reads as infinitely far."""
+    from ``prog`` or of another shape reads as infinitely far. Raises
+    ``ValueError`` for a reference output that is neither a flow, an image
+    nor of an integer or boolean type."""
     inf = float("inf")
-    flow, n_img, n_far = 0.0, 0, 0
+    ints = [k for k, r in ref.items()
+            if not r.is_floating_point() and not r.is_complex()]
+    other = sorted(set(ref) - set(FLOWS) - set(IMAGES) - set(ints))
+    if other:
+        raise ValueError(f"no comparison for the outputs {other}")
+    keys = ["flow_max_px", "image_share_ge1"]
+    keys += ["int_mismatch_share"] if ints else []
+    flow, n_img, n_far, n_int, n_diff = 0.0, 0, 0, 0, 0
     for k, r in ref.items():
         p = prog.get(k)
         if p is None or tuple(p.shape) != tuple(r.shape):
-            return {"flow_max_px": inf, "image_share_ge1": inf}
-        d = (p.double() - r.double()).abs().to(r.device)
+            return dict.fromkeys(keys, inf)
+        p = p.to(r.device)
+        if k in ints:
+            n_int += r.numel()
+            n_diff += int((p != r).sum())
+            continue
+        d = (p.double() - r.double()).abs()
         if k in FLOWS:
             flow = max(flow, inf if bool(torch.isnan(d).any())
                        else float(d.max()))
-        elif k in IMAGES:
+        else:
             n_img += d.numel()
             n_far += int((torch.isnan(d) | (d >= 1.0)).sum())
-    return {"flow_max_px": flow,
-            "image_share_ge1": n_far / n_img if n_img else inf}
+    values = [flow, n_far / n_img if n_img else inf,
+              n_diff / n_int if n_int else inf]
+    return dict(zip(keys, values))
 
 
 def judge(values: Dict[str, float], limits: Dict[str, float]) -> bool:

@@ -8,11 +8,12 @@ the seed (``atlas.py``), builds ``flowgen_torch.Generator`` on it, warms up
 the cell's own shapes, then runs a closed loop for ``S`` seconds: one
 consumer asks for the next batch through ``retrieve_batch`` when it has the
 previous one, and waits until that batch is ready on the card. After the
-window it compares rows of the window's batches with the plain reference
-(``compare.py``, ``reference/``) and prints one JSON line, the last of its
-standard output. ``--trace 1`` profiles a fixed number of steps in the
-window's second half and reports the cell's per-layer metrics
-(``metrics/``); ``--trace 0`` its end-to-end metrics.
+window it compares rows of the window's batches with the configuration's
+plain reference (``compare.py``, ``reference/``) and prints one JSON line,
+the last of its standard output. ``--trace 1`` profiles a fixed number of
+steps in the window's second half and reports the cell's per-layer metrics
+(``metrics/``) from the profile's summary and span table (``spans.py``);
+``--trace 0`` its end-to-end metrics.
 
 Without a CUDA card (or with fewer than the cell asks for) it exits with 2
 and prints no result; so it does if the process has loaded JAX or the JAX
@@ -40,7 +41,8 @@ if str(CHECKOUT) not in sys.path:
 from perfbench import compare, importcheck, stats  # noqa: E402
 from perfbench.atlas import procedural_atlas  # noqa: E402
 from perfbench.cells import Cell  # noqa: E402
-from perfbench.trace import STEP_SPAN, profile_events, summarize  # noqa: E402
+from perfbench.spans import summarize_with_spans  # noqa: E402
+from perfbench.trace import STEP_SPAN, profile_events  # noqa: E402
 
 # Fixed build and kernel-cache directories inside the checkout, so that
 # only a cell's first run in a checkout compiles.
@@ -223,7 +225,6 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device):
     import torch
 
     import flowgen_torch
-    from perfbench import reference
 
     def sync():
         if device.type == "cuda":
@@ -286,7 +287,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device):
 
     idx, prog = keeper.rows()
     try:
-        ref = reference.render_rows(seed % 2**32, idx, settings, atlas)
+        ref = cell.reference().render_rows(seed % 2**32, idx, settings,
+                                           atlas)
         values = compare.numbers(prog, ref)
     except ValueError as e:
         print(f"perfbench: the reference cannot check this cell: {e}",
@@ -301,13 +303,16 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device):
     result = {"correct": correct, "attempted": len(recs),
               "failed": 0, "metrics": {}, "device": dev}
     if trace:
-        summary = summarize(prof.events, prof.steps) if prof.events else None
+        summary = (summarize_with_spans(prof.events, prof.steps)
+                   if prof.events else None)
         host = [r for i, r in enumerate(recs) if not prof.profiled(i)]
         record = {"cell": cell.name, "settings": settings,
                   "config": cell.config, "traffic": traffic,
                   "host": {"step_ms": [1e3 * (r.t_ret - r.t_req) for r in host],
                            "ready_wait_ms": [1e3 * (r.t_ready - r.t_ret)
-                                             for r in host]},
+                                             for r in host],
+                           "before_profile": (len(recs) if prof.first is None
+                                              else prof.first)},
                   "trace": summary}
         for m in cell.per_layer():
             v = cell.reader(m["name"])(record)
@@ -342,7 +347,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device):
                  for k in range(10)]
         waits = [1e3 * (r.t_ready - r.t_req) for r in recs]
         q = statistics.quantiles(waits, n=4)
-        lines.append(f"perfbench: samples/s by tenth of the window {rates}; "
+        lines.append(f"perfbench: samples/s over the window "
+                     f"{stats.samples_per_s(recs, t_open, t_close)!r}, "
+                     f"by tenth of the window {rates}; "
                      f"batch wait ms quartiles {q[0]:.2f} {q[1]:.2f} "
                      f"{q[2]:.2f}, max {max(waits):.2f}; device memory "
                      f"segments allocated in the window {seg1[0] - seg0[0]}, "

@@ -180,7 +180,7 @@ def main(argv=None) -> int:
         seen["summary"] = summarize_with_spans(events, steps, top)
         return seen["summary"]
 
-    run.summarize = keep
+    run.summarize_with_spans = keep
     rc = run.main(["--workload", args.workload, "--seed", str(args.seed),
                    "--seconds", str(args.seconds), "--trace", "1"])
     summary = seen.get("summary")

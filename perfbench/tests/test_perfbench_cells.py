@@ -67,7 +67,7 @@ def test_a_new_cell_config_mix_and_metric_are_files_alone(tiny_bench, tmp_path):
     bench = json.loads(bench_path.read_text())
     bench["per_layer"].append({
         "name": "rows_per_batch", "unit": "rows", "better": "higher",
-        "source": "host_clock", "layer": "runtime", "moves": "samples_per_s",
+        "source": "host_clock", "layer": "runtime", "moves": "batch_wait_p95_ms",
         "workloads": ["tiny_chairs.t"]})
     bench_path.write_text(json.dumps(bench))
     cell = Cell("tiny_chairs.t", bench_path, base)

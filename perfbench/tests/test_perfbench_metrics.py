@@ -90,6 +90,11 @@ def test_readers_on_a_summary(tiny_bench):
            "trace": summarize(_events(), steps=2)}
     assert _read(tiny_bench, "host_step_ms", rec) == pytest.approx(15.0)
     assert _read(tiny_bench, "ready_wait_ms", rec) == pytest.approx(2.0)
+    assert _read(tiny_bench, "first_half_samples_per_s", rec) \
+        == pytest.approx(1024 * 2 / 0.034)
+    before = dict(rec, host=dict(rec["host"], before_profile=1))
+    assert _read(tiny_bench, "first_half_samples_per_s", before) \
+        == pytest.approx(1024 / 0.011)
     assert _read(tiny_bench, "device_idle_share", rec) == pytest.approx(0.4)
     assert _read(tiny_bench, "cuda_kernels_per_step", rec) == 1.0
     assert _read(tiny_bench, "scene_kernel_ms", rec) == pytest.approx(2.5)
@@ -99,3 +104,5 @@ def test_readers_on_a_summary(tiny_bench):
     for m in ("photometric_ms", "photometric_roofline"):
         assert _read(tiny_bench, m, rec) is None
     assert _read(tiny_bench, "scene_kernel_roofline", dict(rec, trace=None)) is None
+    no_host = dict(rec, host={"step_ms": [], "ready_wait_ms": []})
+    assert _read(tiny_bench, "first_half_samples_per_s", no_host) is None

@@ -137,12 +137,17 @@ def test_summary_keeps_its_keys_and_adds_the_span_table():
     assert len(base["kernels"]) == 7
     assert base["device_ops"][0] == ["k_sampler", pytest.approx(1.5e-3)]
     # trace.summarize names each idle gap by the shortest host event that
-    # ends after the gap's middle, with its marks taken whether or not they
-    # have started there (trace.py:_innermost): the gaps in flowgen.step
-    # and flowgen.sampler read flowgen.masks, which starts later
-    assert base["idle_gaps"] == [["aten::mul", pytest.approx(0.007)],
-                                 ["flowgen.masks", pytest.approx(0.00655)],
-                                 ["flowgen.sampler", pytest.approx(0.0033)]]
+    # holds the gap's middle (trace.py:_innermost): [13, 20] ms by
+    # aten::mul, [0, 0.6] and [8.7, 12] by flowgen.step, [0.7, 2] and
+    # [2.5, 5] by flowgen.sampler; flowgen.masks, which starts later,
+    # holds only [8.2, 8.6]
+    assert base["idle_gaps"] == [
+        ["aten::mul", pytest.approx(0.007)],
+        ["flowgen.step", pytest.approx(0.0039)],
+        ["flowgen.sampler", pytest.approx(0.0038)],
+        ["flowgen.precompute", pytest.approx(0.0016)],
+        ["flowgen.masks", pytest.approx(0.0004, abs=1e-9)],
+        ["flowgen.unpack", pytest.approx(0.00015)]]
     assert summarize_with_spans([], steps=2) is None
 
 

@@ -101,13 +101,15 @@ def _union(intervals: Iterable[Tuple[int, int]], lo: int, hi: int):
 
 def _innermost(host: List[Event], starts: List[int], spans: List[Event],
                t: int) -> str:
-    """Name of the shortest host event running at time ``t``: one of the
-    2,000 host operations that started last before it, or a span."""
+    """Name of the shortest host event running at time ``t``, that is with
+    ``start_ns <= t <= end_ns``: one of the 2,000 host operations that
+    started last before it, or a span."""
     best = None
     i = bisect.bisect_right(starts, t)
     for ev in list(reversed(host[max(0, i - 2000):i])) + spans:
-        if ev.end_ns >= t and (best is None or ev.end_ns - ev.start_ns
-                               < best.end_ns - best.start_ns):
+        if ev.start_ns <= t <= ev.end_ns and (
+                best is None
+                or ev.end_ns - ev.start_ns < best.end_ns - best.start_ns):
             best = ev
     return best.name if best is not None else "(no host op)"
 
