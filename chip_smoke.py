@@ -3171,7 +3171,8 @@ def phase_bench(m13, card):
                  else "not run")
               + f", peak memory {cell.peak_gib:.2f} GiB, kernel launches "
               f"{json.dumps(counts)} for {dispatched} steps"
-              + (f" ({built} bank epochs built)" if mode == 9 else "")
+              + (f" ({built} bank builds through the kernels' wrappers: "
+                 "eager, or captured in a CUDA graph)" if mode == 9 else "")
               + f" [{card}]", flush=True)
     cell, counts = bench_cell("mode 13", 13, 64, 6, atlas, cfg_kwargs={
         "compute_inverse_flow": True, "emit_masks": True})

@@ -271,17 +271,40 @@ def _same_root(a, b) -> bool:
     return not torch.is_tensor(a) and not torch.is_tensor(b) and a == b
 
 
+_BANK_LOCK = threading.Lock()
+_BANK_STATS = {"demand": 0, "ahead": 0}
+
+
+def bank_epoch_stats() -> dict:
+    """How many bank epochs every :class:`BankEpochCache` has built since
+    the process started: on demand (a step found its epoch missing) and
+    ahead (:meth:`BankEpochCache.prefetch_next`). The ``flowgen.bank_epoch``
+    span carries the same word as its argument."""
+    with _BANK_LOCK:
+        return dict(_BANK_STATS)
+
+
+def _count_build(how: str):
+    with _BANK_LOCK:
+        _BANK_STATS[how] += 1
+
+
 class BankEpochCache:
     """What ``build_fn(root, step)`` makes for a bank epoch (``step //
     reuse``) of one root and content stream (``warp_bank_impl``), built
     once per (root, stream, epoch); a call with another root drops what was
     cached, and two streams never share an epoch's entry.
     :meth:`prefetch_next`, called after a step's work is enqueued, builds
-    the next epoch on an epoch's last step. The build launches its many small ops from the host,
+    the next epoch on an epoch's last step. An eager build launches its many small ops from the host,
     so this moves the epoch's host time to the tail of the step before the
     boundary and costs all of it there; it hides only the device time that
     overlaps with the step's. A seek elsewhere only wastes the prediction;
-    results stay exact."""
+    results stay exact. Each build counts in :func:`bank_epoch_stats`.
+
+    A build may reuse the memory of the epoch it returned an even number of
+    epochs before (``warpfields/generator.py:BankAuxGraphs``), so the cache
+    forgets an epoch of the parity it is about to build: it holds at most
+    one of each."""
 
     def __init__(self, build_fn, reuse: int, stream: str = "pallas"):
         self._build = build_fn
@@ -297,6 +320,13 @@ class BankEpochCache:
     def _epoch(self, step: int):
         return self._stream, int(step) // self._reuse
 
+    @staticmethod
+    def _forget_parity(c, epoch):
+        for at, val in (("epoch", "val"), ("next_epoch", "next_val")):
+            e = c.get(at)
+            if e is not None and e != epoch and (e[1] - epoch[1]) % 2 == 0:
+                del c[at], c[val]
+
     def get(self, root, step: int):
         c = self._for_root(root)
         epoch = self._epoch(step)
@@ -305,8 +335,10 @@ class BankEpochCache:
                 c["val"] = c.pop("next_val")
                 del c["next_epoch"]
             else:
+                self._forget_parity(c, epoch)
                 with span("flowgen.bank_epoch", "demand"):
                     c["val"] = self._build(root, epoch[1] * self._reuse)
+                _count_build("demand")
             c["epoch"] = epoch
         return c["val"]
 
@@ -314,8 +346,10 @@ class BankEpochCache:
         c, reuse = self._for_root(root), self._reuse
         nxt = (self._stream, int(step) // reuse + 1)
         if int(step) % reuse == reuse - 1 and c.get("next_epoch") != nxt:
+            self._forget_parity(c, nxt)
             with span("flowgen.bank_epoch", "ahead"):
                 c["next_val"] = self._build(root, nxt[1] * reuse)
+            _count_build("ahead")
             c["next_epoch"] = nxt
 
 
@@ -342,8 +376,13 @@ def _generate_fn(cfg: DataGenConfig, dev, part: int = 0, parts: int = 1):
     if cfg.mode_spec.warp_p == 0.0:
         return batch
 
+    graphs = (warpgen.BankAuxGraphs(cfg, dev) if fused and dev.type == "cuda"
+              and cfg.warp_bank_impl == "pallas" else None)
+
     def build(root, step):
         key = root.to(dev) if torch.is_tensor(root) else root_key(root, dev)
+        if graphs is not None:
+            return graphs(key, step)
         if fused:
             return warpgen.make_bank_and_aux(key, step, cfg)[1]
         return warpgen.make_warp_bank(key, step, cfg)

@@ -92,7 +92,10 @@ def trace(log_dir: str):
     ``flowgen.adapt``, or on the windowed renderer
     ``flowgen.background_pass`` and ``flowgen.objects``; mode 9's bank
     epochs build under ``flowgen.bank_epoch`` (argument ``demand`` or
-    ``ahead``)."""
+    ``ahead``), which holds ``flowgen.bank_fields`` (displacer grids and
+    elementary fields), ``flowgen.bank_compose`` (the doublings) and, on
+    the scene kernel's path, ``flowgen.bank_aux`` (crops, column-inverse
+    solve, the background's upscaled planes and bands)."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)

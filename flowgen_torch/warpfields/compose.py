@@ -372,21 +372,30 @@ def self_compose(field, iters):
     return self_compose_batch(field[None], iters)[0]
 
 
-def make_big_fields(grid, inverse, size, coarse_iters: int = HALF_ITERS):
-    """Composed big fields of M directions (the JAX package's
-    ``make_big_fields_pallas`` on grids): elementary fields on the half
-    lattice, ``coarse_iters`` doublings there, x2 upsample, the remaining
-    ``COMPOSE_ITERS - coarse_iters`` doublings at full size,
-    ``clamp_near_zeros``. ``grid`` leaves (M, N), ``inverse`` (M,) bool.
-    Returns (M, 2, size, size) with NaN at flagged pixels."""
-    from .fields import clamp_near_zeros, elementary_field
+def compose_big_fields(f_h, coarse_iters: int = HALF_ITERS):
+    """The doublings of :func:`make_big_fields`: ``coarse_iters`` of them on
+    the half-lattice elementary fields ``f_h`` (M, 2, size/2, size/2), x2
+    upsample, the remaining ``COMPOSE_ITERS - coarse_iters`` at full size,
+    ``clamp_near_zeros``. Returns (M, 2, size, size) with NaN at flagged
+    pixels."""
+    from .fields import clamp_near_zeros
 
-    half = size // 2
-    f_h = elementary_field(grid, half, inverse, stride=2.0) * 0.5
     f_h = self_compose_batch(f_h, coarse_iters)
     f = 2.0 * _upsample2(torch.nan_to_num(f_h))
     out = self_compose_batch(f, COMPOSE_ITERS - coarse_iters)
     return clamp_near_zeros(out)
+
+
+def make_big_fields(grid, inverse, size, coarse_iters: int = HALF_ITERS):
+    """Composed big fields of M directions (the JAX package's
+    ``make_big_fields_pallas`` on grids): elementary fields on the half
+    lattice, then :func:`compose_big_fields`. ``grid`` leaves (M, N),
+    ``inverse`` (M,) bool. Returns (M, 2, size, size) with NaN at flagged
+    pixels."""
+    from .fields import elementary_field
+
+    f_h = elementary_field(grid, size // 2, inverse, stride=2.0) * 0.5
+    return compose_big_fields(f_h, coarse_iters)
 
 
 def make_big_fields_keyed(keys, size, coarse_iters: int = HALF_ITERS):

@@ -13,7 +13,10 @@ to be bit-identical to the JAX package's.
 
 ``elementary_field`` is batched over directions: one call evaluates every
 (field, flow / inverse flow) pair of a bank epoch, accumulating the
-displacers in the JAX ``fori_loop``'s order.
+displacers in the JAX ``fori_loop``'s order. The displacers' constants
+(rotations, zoom factors, support scales) are derived for all of them at
+once before the loop, elementwise and so in the same bits, which takes
+most of a bank epoch's launches off the host.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from typing import NamedTuple
 
 import torch
 
-from .._fp import f32
+from .._fp import const, f32
 from ..ops.detmath import det_cos, det_div, det_exp, det_recip, det_sin
 from ..ops.texture import make_quad, sample_bilinear_quad
 from ..random.streams import split, uniform, uniform_int
@@ -127,41 +130,63 @@ def gaussian2d_support(x, y, cx, cy, sigma_x, sigma_y, angle):
     return det_exp(-r2 * det_recip(2.0 * sigma_x * sigma_x))
 
 
-def _displacer_term(grid: DisplacerGrid, i: int, px, py, inverse):
-    """Support-weighted flow of displacer ``i`` over the pixel grid, for
-    every direction at once: grid leaves are (M, N), ``inverse`` (M,) bool;
-    returns two (M, S, S) planes."""
+def _displacer_constants(grid: DisplacerGrid, inverse):
+    """Every displacer's per-direction constants, each (N, M, 1, 1): its
+    motion's rotation cosine and sine, the zoom or inverse zoom factor, the
+    translation, and its support's rotation and scales."""
     def at(v):
-        return v[:, i].reshape(-1, 1, 1)
+        return v.t().reshape(v.shape[1], v.shape[0], 1, 1)
 
-    kind = at(grid.kind)
-    inv = inverse.reshape(-1, 1, 1)
+    inv = inverse.reshape(1, -1, 1, 1)
     p0 = at(grid.p0)
-    dx = px - at(grid.cx)
-    dy = py - at(grid.cy)
     om = torch.where(inv, p0, -p0)
-    c, s = det_cos(om), det_sin(om)
+    sgn = torch.where(inv, -1.0, 1.0)
+    sx, sy, angle = at(grid.sup_sx), at(grid.sup_sy), at(grid.sup_angle)
+    return {
+        "kind": at(grid.kind), "cx": at(grid.cx), "cy": at(grid.cy),
+        "c": det_cos(om), "s": det_sin(om),
+        "f": torch.where(inv, det_recip(p0), p0),
+        "tx": sgn * p0, "ty": sgn * at(grid.p1),
+        "sup_cx": at(grid.sup_cx), "sup_cy": at(grid.sup_cy),
+        "a": det_cos(angle), "b": -det_sin(angle),
+        "ratio": det_div(sx, sy), "rinv": det_recip(2.0 * sx * sx),
+    }
+
+
+def _displacer_term(k: dict, px, py):
+    """Support-weighted flow of one displacer over the pixel grid, for
+    every direction at once: its constants ``k`` (M, 1, 1); returns two
+    (M, S, S) planes. Elementwise the arithmetic of
+    :func:`gaussian2d_support` and the JAX package's displacer term."""
+    dx = px - k["cx"]
+    dy = py - k["cy"]
+    c, s = k["c"], k["s"]
     rot_fx = (c * dx - s * dy) - dx
     rot_fy = (s * dx + c * dy) - dy
-    f = torch.where(inv, det_recip(p0), p0)
-    zoom_fx = (f - 1.0) * dx
-    zoom_fy = (f - 1.0) * dy
-    sgn = torch.where(inv, -1.0, 1.0)
-    fx = torch.where(kind == 0, sgn * p0,
+    zoom_fx = (k["f"] - 1.0) * dx
+    zoom_fy = (k["f"] - 1.0) * dy
+    kind = k["kind"]
+    fx = torch.where(kind == 0, k["tx"],
                      torch.where(kind == 1, rot_fx, zoom_fx))
-    fy = torch.where(kind == 0, sgn * at(grid.p1),
+    fy = torch.where(kind == 0, k["ty"],
                      torch.where(kind == 1, rot_fy, zoom_fy))
-    w = gaussian2d_support(px, py, at(grid.sup_cx), at(grid.sup_cy),
-                           at(grid.sup_sx), at(grid.sup_sy), at(grid.sup_angle))
+    del dx, dy, rot_fx, rot_fy, zoom_fx, zoom_fy
+    ex, ey = px - k["sup_cx"], py - k["sup_cy"]
+    a, b = k["a"], k["b"]
+    rx = a * ex + b * ey
+    ry = (-b * ex + a * ey) * k["ratio"]
+    r2 = rx * rx + ry * ry
+    w = det_exp(-r2 * k["rinv"])
     return fx * w, fy * w
 
 
 def stack_grids(grids, inverse_flags):
     """One (M, N) grid from per-direction grids, with their (M,) inverse
-    flags."""
+    flags (a constant of the device, so no host-to-device copy)."""
     g = DisplacerGrid(*(torch.stack(v) for v in zip(*grids)))
-    dev = g.kind.device
-    return g, torch.tensor(list(inverse_flags), dtype=torch.bool, device=dev)
+    flags = tuple(bool(f) for f in inverse_flags)
+    return g, const(("inverse_flags", flags), g.kind.device,
+                    lambda: torch.tensor(flags, dtype=torch.bool))
 
 
 def elementary_field(grid: DisplacerGrid, size: int, inverse,
@@ -175,10 +200,11 @@ def elementary_field(grid: DisplacerGrid, size: int, inverse,
     ys = torch.arange(size, dtype=torch.float32, device=dev) * stride
     py, px = torch.meshgrid(ys, ys, indexing="ij")
     M, n = grid.kind.shape
+    consts = _displacer_constants(grid, inverse)
     fx = torch.zeros((M, size, size), dtype=torch.float32, device=dev)
     fy = torch.zeros_like(fx)
     for i in range(n):
-        tx, ty = _displacer_term(grid, i, px, py, inverse)
+        tx, ty = _displacer_term({k: v[i] for k, v in consts.items()}, px, py)
         fx = fx + tx
         fy = fy + ty
     return torch.stack([fx, fy], dim=1)
@@ -234,18 +260,25 @@ def self_compose(field, iters: int = COMPOSE_ITERS):
     return f.permute(0, 3, 1, 2)
 
 
-def make_big_fields(grid, inverse, size: int, coarse_iters: int = 16):
-    """Composed big fields of M directions in the ``"xla"`` stream (the
-    JAX package's ``make_big_field``, every direction of a bank epoch at
-    once): the elementary field on the half lattice (stride 2) x 0.5,
-    ``coarse_iters`` doublings there, ``2 * _upsample2(nan_to_num(.))``,
-    the last ``COMPOSE_ITERS - coarse_iters`` doublings at full size,
-    ``clamp_near_zeros``. ``grid`` leaves (M, N), ``inverse`` (M,) bool.
+def compose_big_fields(f_h, coarse_iters: int = 16):
+    """The doublings of :func:`make_big_fields` in the ``"xla"`` stream:
+    ``coarse_iters`` of them on the half-lattice elementary fields ``f_h``
+    (M, 2, size/2, size/2), ``2 * _upsample2(nan_to_num(.))``, the last
+    ``COMPOSE_ITERS - coarse_iters`` at full size, ``clamp_near_zeros``.
     Returns (M, 2, size, size) with NaN at flagged pixels."""
-    f_h = elementary_field(grid, size // 2, inverse, stride=2.0) * 0.5
     f_h = self_compose(f_h, coarse_iters)
     f = 2.0 * _upsample2(torch.nan_to_num(f_h))
     return clamp_near_zeros(self_compose(f, COMPOSE_ITERS - coarse_iters))
+
+
+def make_big_fields(grid, inverse, size: int, coarse_iters: int = 16):
+    """Composed big fields of M directions in the ``"xla"`` stream (the
+    JAX package's ``make_big_field``, every direction of a bank epoch at
+    once): the elementary field on the half lattice (stride 2) x 0.5, then
+    :func:`compose_big_fields`. ``grid`` leaves (M, N), ``inverse`` (M,)
+    bool. Returns (M, 2, size, size) with NaN at flagged pixels."""
+    f_h = elementary_field(grid, size // 2, inverse, stride=2.0) * 0.5
+    return compose_big_fields(f_h, coarse_iters)
 
 
 def make_big_field(key, size: int, coarse_iters: int = 16):

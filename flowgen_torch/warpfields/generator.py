@@ -14,6 +14,13 @@ kernels on the card, their plain versions on the CPU, the same bits on
 both); ``"xla"`` composes by quad-gather lookups (``fields.self_compose``)
 and solves the column inverse by a gather fixed point (:func:`_gdisp_xla`),
 plain PyTorch on either device, as XLA in the JAX package.
+
+On the card ``pipeline/generator.py:make_generate_fn`` replays an epoch's
+scene-kernel planes from CUDA graphs (:class:`BankAuxGraphs`), whose inputs
+are the root key and the epoch index.
+An epoch's build names its phases in a profile: ``flowgen.bank_fields``
+(displacer grids and elementary fields), ``flowgen.bank_compose`` (the
+doublings) and, in :func:`make_bank_and_aux`, ``flowgen.bank_aux``.
 """
 
 from __future__ import annotations
@@ -24,7 +31,8 @@ from ..compose.render import WarpAux, WarpBank
 from ..config import DataGenConfig
 from ..ops.scene import BG_EY, bg_band_starts
 from ..ops.texture import sample_bilinear
-from ..random.streams import Stream, fold_in, stream_key
+from ..random.streams import Stream, sample_key
+from ..utils.profiling import span
 from . import compose, fields
 from .fields import _upsample2, sample_displacer_grid, stack_grids
 
@@ -73,23 +81,47 @@ def _stream_of(cfg: DataGenConfig, impl):
     return impl
 
 
-def _big_fields(root, step, cfg: DataGenConfig, impl=None):
-    """The epoch's composed big fields and their inverses: (flows, iflows),
-    each (F, 2, big, big) planes x, y with NaN at flagged pixels, in the
-    content stream ``impl`` (default ``cfg.warp_bank_impl``). All 2F
-    directions compose together, through shared launches."""
+def _step_keys(root, step, cfg: DataGenConfig):
+    """The big-field keys (F, 2) of step ``step``'s bank epoch: ``root``
+    folded by the epoch, then each field's ``Stream.WARP_FIELD`` key."""
+    epoch = int(step) // max(cfg.warp_bank_reuse_steps, 1)
+    return _field_keys(root, _index(root, epoch), cfg.warp_fields_per_batch)
+
+
+def _index(key, i: int):
+    """``i`` as an int64 scalar on ``key``'s device, filled there: no
+    host-to-device copy."""
+    return torch.full((), int(i), dtype=torch.int64, device=key.device)
+
+
+def _field_keys(root, epoch, n: int):
+    """:func:`_step_keys` of an epoch index already on the device:
+    ``stream_key(fold_in(root, epoch), Stream.WARP_FIELD, i)`` for i < n,
+    folded by device scalars."""
+    k = sample_key(root, epoch)
+    k = sample_key(k, _index(k, int(Stream.WARP_FIELD)))
+    return torch.stack([sample_key(k, _index(k, i)) for i in range(n)])
+
+
+def _big_fields(keys, cfg: DataGenConfig, impl=None):
+    """The composed big fields and their inverses of the field keys
+    ``keys`` (F, 2): (flows, iflows), each (F, 2, big, big) planes x, y
+    with NaN at flagged pixels, in the content stream ``impl`` (default
+    ``cfg.warp_bank_impl``). All 2F directions compose together, through
+    shared launches."""
     impl = _stream_of(cfg, impl)
     big = big_field_size(cfg.width, cfg.height)
-    epoch_key = fold_in(root, int(step) // max(cfg.warp_bank_reuse_steps, 1))
-    grids, flags = [], []
-    for i in range(cfg.warp_fields_per_batch):
-        g = sample_displacer_grid(
-            stream_key(epoch_key, Stream.WARP_FIELD, i), big)
-        grids += [g, g]
-        flags += [False, True]
-    grid, inverse = stack_grids(grids, flags)
-    make = compose.make_big_fields if impl == "pallas" else fields.make_big_fields
-    out = make(grid, inverse, big)
+    with span("flowgen.bank_fields"):
+        grids, flags = [], []
+        for key in keys:
+            g = sample_displacer_grid(key, big)
+            grids += [g, g]
+            flags += [False, True]
+        grid, inverse = stack_grids(grids, flags)
+        f_h = fields.elementary_field(grid, big // 2, inverse, stride=2.0) * 0.5
+    with span("flowgen.bank_compose"):
+        out = (compose.compose_big_fields if impl == "pallas"
+               else fields.compose_big_fields)(f_h)
     return out[0::2], out[1::2]
 
 
@@ -117,7 +149,8 @@ def make_warp_bank(root, step, cfg: DataGenConfig, impl=None) -> WarpBank:
     path). ``impl``: the content stream, "pallas" or "xla", or None to
     follow ``cfg.warp_bank_impl``; a config dial, never chosen by the
     device."""
-    return _crop_bank(*_big_fields(root, step, cfg, impl), cfg)
+    return _crop_bank(*_big_fields(_step_keys(root, step, cfg), cfg, impl),
+                      cfg)
 
 
 def _half_offset_expand(p, axis: int, c0: int, n_pairs: int):
@@ -218,10 +251,24 @@ def make_bank_and_aux(root, step, cfg: DataGenConfig, impl=None,
     and the solve: ``coarse_gdisp_batch`` for "pallas" (``n_iter`` default
     8), :func:`_gdisp_xla` for "xla" (default 4), both at lattice stride
     ``coarse``."""
+    return _keyed_bank_and_aux(_step_keys(root, step, cfg), cfg, impl, n_iter,
+                               coarse)
+
+
+def _keyed_bank_and_aux(keys, cfg: DataGenConfig, impl, n_iter, coarse):
+    """:func:`make_bank_and_aux` of the epoch's field keys (F, 2)."""
     impl = _stream_of(cfg, impl)
+    flows, iflows = _big_fields(keys, cfg, impl)
+    with span("flowgen.bank_aux"):
+        return _bank_and_aux(flows, iflows, cfg, impl, n_iter, coarse)
+
+
+def _bank_and_aux(flows, iflows, cfg: DataGenConfig, impl, n_iter, coarse):
+    """:func:`make_bank_and_aux` after the big fields: the crop bank, the big
+    fields' column-inverse solve, the crops of the object planes and the
+    background's x2-upscaled planes with their bands."""
     W, H = cfg.width, cfg.height
     origins = crop_origins(W, H)
-    flows, iflows = _big_fields(root, step, cfg, impl)
     bank = _crop_bank(flows, iflows, cfg)
 
     big_i = torch.nan_to_num(iflows)
@@ -245,3 +292,63 @@ def make_bank_and_aux(root, step, cfg: DataGenConfig, impl=None,
     bg_aux = torch.stack(per_origin, dim=1).reshape(
         -1, 2, H + 2 * BG_EY, W).contiguous()
     return bank, WarpAux(obj_aux.contiguous(), bg_aux, bg_band_starts(bg_aux))
+
+
+class BankAuxGraphs:
+    """``make_bank_and_aux(root, step, cfg)[1]``, the scene kernel's warp
+    planes of a bank epoch in the ``"pallas"`` stream, replayed from CUDA
+    graphs on ``dev``: one for each parity of the epoch index, captured on
+    its first call, with the root key (2,) and the epoch index (int64 on
+    the device) as inputs. An epoch's build is some 12,000 small launches
+    from the host; a replay is one.
+
+    The planes a call returns are its graph's outputs, not copies: the next
+    call of the same parity overwrites them, in the order of the calling
+    stream, so a caller holds at most one epoch of each parity
+    (``pipeline/generator.py:BankEpochCache``) and reads the planes on that
+    stream. The first capture follows one eager build on a side stream,
+    which loads the kernels and fills the constants they read. The replayed
+    kernels are the eager ones on the same inputs, so the planes are the
+    eager planes bit for bit. ``captures`` and ``replays`` count the
+    calls; the kernels' launch counters (``compose.hwarp_rows.launches``,
+    ``compose.coarse_gdisp_batch.launches``) count the warm-up's and the
+    captures' launches, not the replays'."""
+
+    def __init__(self, cfg: DataGenConfig, dev):
+        self.cfg = cfg
+        self.dev = torch.device(dev)
+        self.root = torch.empty(2, dtype=torch.int64, device=self.dev)
+        self.epoch = torch.empty((), dtype=torch.int64, device=self.dev)
+        self.graphs, self.out = [None, None], [None, None]
+        self.captures = self.replays = 0
+
+    def _run(self):
+        keys = _field_keys(self.root, self.epoch, self.cfg.warp_fields_per_batch)
+        return _keyed_bank_and_aux(keys, self.cfg, "pallas", None, 4)[1]
+
+    def __call__(self, root, step) -> WarpAux:
+        epoch = int(step) // max(self.cfg.warp_bank_reuse_steps, 1)
+        slot = epoch % 2
+        with torch.cuda.device(self.dev):
+            cur = torch.cuda.current_stream()
+            self.root.copy_(root)
+            self.epoch.fill_(epoch)
+            if self.graphs[slot] is None:
+                self._capture(slot, cur)
+            self.graphs[slot].replay()
+            self.replays += 1
+            return self.out[slot]
+
+    def _capture(self, slot: int, cur):
+        side = torch.cuda.Stream()
+        side.wait_stream(cur)
+        if self.captures == 0:
+            with torch.cuda.stream(side):
+                self._run()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side,
+                              capture_error_mode="thread_local"):
+            self.out[slot] = self._run()
+        cur.wait_stream(side)
+        self.graphs[slot] = graph
+        self.captures += 1

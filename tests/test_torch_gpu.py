@@ -251,6 +251,70 @@ def test_bank_cuda_matches_plain():
         assert torch.equal(a.cpu(), b)
 
 
+def test_bank_graphs_replay_eager_planes():
+    """The graphs' warp planes equal the eager bank's bit for bit, epoch
+    after epoch, under two roots and after a seek back; a call overwrites
+    only its own parity's planes, and each parity is captured once."""
+    from flowgen_torch.warpfields.generator import (BankAuxGraphs,
+                                                     make_bank_and_aux)
+
+    _need_card()
+    cfg = flowgen_torch.DataGenConfig(mode=9, batch_size=2, width=128,
+                                      height=96, warp_bank_reuse_steps=2)
+    graphs = BankAuxGraphs(cfg, "cuda")
+    for seed in (3, 2**31 + 5):
+        root = root_key(seed, "cuda")
+        held = None
+        for step in (0, 2, 5, 6, 1, 9):
+            got = graphs(root, step)
+            want = make_bank_and_aux(root, step, cfg)[1]
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
+            if held is not None and (step // 2) % 2 != held[0]:
+                for a, b in zip(held[1], held[2]):
+                    assert torch.equal(a, b)
+            held = ((step // 2) % 2, got, [t.clone() for t in got])
+    assert (graphs.captures, graphs.replays) == (2, 12)
+
+
+def test_warm_eager_bank_does_not_synchronize():
+    """After one build, an eager bank epoch on the card makes no call that
+    waits for the device (no host-to-device copy of host data): what makes
+    it capturable."""
+    from flowgen_torch.warpfields.generator import make_bank_and_aux
+
+    _need_card()
+    cfg = flowgen_torch.DataGenConfig(mode=9, batch_size=2, width=128,
+                                      height=96)
+    root = root_key(8, "cuda")
+    make_bank_and_aux(root, 0, cfg)
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        make_bank_and_aux(root, 2, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+def test_generate_fn_bank_graphs_match_eager_batches():
+    """make_generate_fn on the card (the bank's epochs from its graphs,
+    built ahead, and a seek back and forth) gives generate_batch's eager
+    batches bit for bit."""
+    from flowgen_torch.pipeline.generator import make_generate_fn
+
+    _need_card()
+    cfg = flowgen_torch.DataGenConfig(mode=9, batch_size=2, width=128,
+                                      height=96, warp_bank_reuse_steps=2)
+    atlas = flowgen_torch.procedural_atlas(4, height=96, width=128)
+    fn = make_generate_fn(cfg, device="cuda")
+    for step in (0, 1, 2, 3, 4, 9, 2, 3, 4, 0):
+        got = fn(0, step, atlas)
+        want = generate_batch(0, step, atlas, cfg, device="cuda")
+        assert set(got) == set(want)
+        for k in want:
+            assert torch.equal(got[k], want[k]), (step, k)
+
+
 def _mode9_tables(cfg, dev):
     """Scene-kernel inputs of a mode-9 batch holding deforming objects and a
     deforming background (the first such seed)."""

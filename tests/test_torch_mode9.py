@@ -209,6 +209,25 @@ def test_bank_epoch_cache_keys_on_root():
     assert built == [(key(a), 0), (key(a), 2), (key(b), 2), (7, 2)]
 
 
+def test_bank_epoch_cache_holds_one_epoch_a_parity():
+    """A build may overwrite the epoch of its parity that it built before
+    (the CUDA graphs' planes): the cache never returns such an epoch, after
+    a seek forward, a seek back or a prediction from another epoch."""
+    slots = [[None], [None]]
+
+    def build(root, step):
+        slot = slots[(step // 2) % 2]
+        slot[0] = step // 2
+        return slot
+
+    cache = BankEpochCache(build, 2)
+    for step, pre in ((0, 1), (6, 7), (2, 3), (4, None), (2, None), (0, 3),
+                      (0, None), (5, 5), (4, None)):
+        assert cache.get(1, step) == [step // 2], step
+        if pre is not None:
+            cache.prefetch_next(1, pre)
+
+
 def test_warp_oob_nan_decode_matches_jax():
     jc, tc = _cfgs(warp_oob="nan")
     rng = np.random.default_rng(0)

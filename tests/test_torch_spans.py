@@ -139,6 +139,59 @@ def test_layer_spans_nest_where_the_layers_run(recorder, run, want):
     assert recorder.spans == want
 
 
+BANK = ("flowgen.bank_epoch", "flowgen.bank_fields", "flowgen.bank_compose",
+        "flowgen.bank_aux")
+
+
+def test_bank_epoch_build_holds_its_phases(recorder):
+    """A mode-9 epoch built on demand for the scene kernel's path (256x192,
+    one field) enters its three phase spans inside ``flowgen.bank_epoch``,
+    in order, and counts as one demand build."""
+    from flowgen_torch.pipeline.generator import bank_epoch_stats
+    from flowgen_torch.warpfields import generator as warpgen
+
+    cfg = flowgen_torch.DataGenConfig(mode=9, batch_size=1, width=256,
+                                      height=192, warp_fields_per_batch=1,
+                                      warp_bank_reuse_steps=2)
+    cache = BankEpochCache(
+        lambda root, step: warpgen.make_bank_and_aux(root, step, cfg)[1],
+        cfg.warp_bank_reuse_steps)
+    before = bank_epoch_stats()
+    aux = cache.get(streams.root_key(5), 0)
+    after = bank_epoch_stats()
+    assert aux.obj.shape == (40, 4, 192, 256)
+    assert recorder.spans == [
+        ("flowgen.bank_epoch", "demand", None),
+        ("flowgen.bank_fields", None, "flowgen.bank_epoch"),
+        ("flowgen.bank_compose", None, "flowgen.bank_epoch"),
+        ("flowgen.bank_aux", None, "flowgen.bank_epoch")]
+    assert {k: after[k] - before[k] for k in after} == {"demand": 1,
+                                                        "ahead": 0}
+
+
+def test_bank_epoch_stats_count_demand_then_ahead():
+    """Four steps at two steps an epoch: the first epoch is built on
+    demand, the next two ahead, on each epoch's last step."""
+    from flowgen_torch.pipeline.generator import bank_epoch_stats
+
+    before = bank_epoch_stats()
+    _bank_epochs()
+    after = bank_epoch_stats()
+    assert {k: after[k] - before[k] for k in after} == {"demand": 1,
+                                                        "ahead": 2}
+
+
+def test_mode7_step_enters_no_bank_span(recorder):
+    """A mode-7 request builds no bank epoch: none of the bank's spans."""
+    from flowgen_torch.pipeline.generator import bank_epoch_stats
+
+    before = bank_epoch_stats()
+    _batches(_generator(), 1)
+    assert recorder.spans and not [s for s in recorder.spans
+                                   if s[0] in BANK]
+    assert bank_epoch_stats() == before
+
+
 def test_no_profiler_means_no_record_function(monkeypatch):
     """With no profile running a step enters no ``record_function``: each
     span is the one shared null context."""
