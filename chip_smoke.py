@@ -118,7 +118,8 @@ Phases (any failure exits non-zero before the final line):
      at 512x384 the scene kernel on the stream's warp planes against its
      plain version on samples 0-3 of step 0 (inverse flow and ids), bit for
      bit; the main path through Generator (B=64, 2 warm-up and 5 timed
-     steps) beside phase 7's, with no bank kernel launched; the bank
+     steps) beside phase 7's, with no composition kernel launched (the
+     elementary field takes its kernel in both streams); the bank
      producer's ms per epoch at 1536^2 in both streams;
  19. the windowed renderer at 1024x436, B=4, mode 9 with the "xla" stream
      (3072^2 fields), through the window kernels against their plain
@@ -174,7 +175,15 @@ Phases (any failure exits non-zero before the final line):
      before each cell and read after (the scene kernel once a step; the
      bank kernels 36 and 34 an epoch built); then mode 13 with flow1 and
      masks (phase 10's cell) the same way, its peak beside phase 10's;
-then one JSON line {"kernels": [...]} with seven rows, and last the line
+ 25. the elementary field's kernel (csrc/fields.cu:elementary_field_kernel)
+     at the chairs cells' bank epoch (2 big fields of 1536^2 and their
+     inverses: 4 directions, 63 displacers, the 768^2 half lattice) and at
+     Sintel's (2 of 3072^2: 270 displacers, 1536^2): against its plain
+     version bit for bit (the sign of a zero included), its time by CUDA
+     events alone and as the whole call with the constants' derivation,
+     the plain version once, the fp32-issue bound, its registers and the
+     SASS of its displacer loop a (pixel, displacer) pair;
+then one JSON line {"kernels": [...]} with eight rows, and last the line
 {"ok": true, "device": {...}}.
 
 It needs the repository (it imports flowgen_torch from its own directory),
@@ -392,18 +401,20 @@ def sass_loop_counts(ins, values: int, drop_f64: bool = True):
 def kernel_counters():
     from flowgen_torch.ops import photometric, resample, window
     from flowgen_torch.ops import scene as ps
-    from flowgen_torch.warpfields import compose
+    from flowgen_torch.warpfields import compose, fields
 
     return {"scene_render": ps.scene_render,
             "coarse_gdisp": compose.coarse_gdisp_batch,
             "hwarp_rows": compose.hwarp_rows,
+            "elementary_field": fields.elementary_field,
             "object_window": window.object_window,
             "polygon_coverage": window.polygon_coverage,
             "affine_resample": resample.affine_resample,
             "photometric": photometric.augment_batch}
 
 
-FUSED_KERNELS = ("scene_render", "coarse_gdisp", "hwarp_rows")
+FUSED_KERNELS = ("scene_render", "coarse_gdisp", "hwarp_rows",
+                 "elementary_field")
 WINDOW_KERNELS = ("object_window", "polygon_coverage")
 
 
@@ -1307,6 +1318,149 @@ def phase_coarse_epoch(cfg, dev, card):
         fail(f"coarse_gdisp_batch ran {counts['per_call']} CUDA kernels in a "
              "call, not its 2 (torch.profiler)")
     return res
+
+
+# Operations a (pixel, displacer) pair of csrc/fields.cu:elementary_field_kernel
+# by the displacer's motion kind (translation, rotation, zoom): the support's
+# rotated Gaussian argument (13) and its det_exp (26, three of them integer),
+# the weighted sums (4), and the motion (0, 10, 4). None fuses (-fmad=false).
+OPS_FIELD_PAIR = (43, 53, 47)
+# Float32 add or multiply instructions an H100 issues a second: 128 lanes an
+# SM at 1.98 GHz (half the FMA-counted 67 TFLOP/s).
+PEAK_F32_ISSUE_S = 132 * 128 * 1.98e9
+
+
+def elementary_field_inputs(big: int, n_fields: int, dev):
+    """The displacer grids of ``n_fields`` big fields of ``big``^2, each
+    with its flow and inverse flow, stacked as a bank epoch stacks them."""
+    from flowgen_torch.random.streams import Stream, root_key, stream_key
+    from flowgen_torch.warpfields import fields
+
+    grids, flags = [], []
+    for i in range(n_fields):
+        g = fields.sample_displacer_grid(
+            stream_key(root_key(0, dev), Stream.WARP_FIELD, i), big)
+        grids += [g, g]
+        flags += [False, True]
+    return fields.stack_grids(grids, flags)
+
+
+def elementary_field_bound(grid, size: int):
+    """Least time of one call at the fp32 issue rate: OPS_FIELD_PAIR of each
+    displacer's kind over every lattice pixel."""
+    ops = sum(OPS_FIELD_PAIR[int(k)] * n for k, n in zip(
+        *torch.unique(grid.kind.cpu(), return_counts=True))) * size * size
+    return {"operations": float(ops),
+            "bound_ms": 1e3 * float(ops) / PEAK_F32_ISSUE_S}
+
+
+def elementary_field_sass(pixels: int):
+    """Registers of elementary_field_kernel (ptxas) and its displacer loop in
+    the SASS, a (pixel, displacer) pair: the backward branch holding the
+    most FMUL, the narrowest such, over the ``pixels`` pixels of a thread.
+    The three motion arms are all counted; a block takes one."""
+    from flowgen_torch.ops import _build
+
+    info = _build.BUILD_INFO["flowgen_fields"]
+    regs = {n: r for n, r in ptxas_registers(info["log"]).items()
+            if "elementary_field_kernel" in n}
+    funcs = {n: ins for n, ins in sass_functions(info["path"]).items()
+             if "elementary_field_kernel" in n}
+    if len(funcs) != 1 or len(regs) != 1:
+        fail(f"elementary_field_kernel is not once in the library: "
+             f"{list(funcs)}, {list(regs)}")
+    ins = next(iter(funcs.values()))
+
+    def body(t, a):
+        return [op for b, op, _ in ins if t <= b <= a]
+
+    loops = [(t, a) for a, op, t in ins
+             if op.split(".")[0] == "BRA" and t is not None and t <= a]
+    t, a = max(loops, key=lambda ta: (
+        sum(op.startswith("FMUL") for op in body(*ta)), ta[0] - ta[1]))
+    ops = body(t, a)
+    fam = {}
+    for op in ops:
+        k = op.split(".")[0]
+        fam[k] = fam.get(k, 0) + 1
+    return {"registers": next(iter(regs.values())),
+            "loop_instructions": len(ops), "per_pair": len(ops) / pixels,
+            "families": {k: v / pixels for k, v in sorted(
+                fam.items(), key=lambda kv: -kv[1])}}
+
+
+def phase_elementary_field(card, dev):
+    """Phase 25: elementary_field_kernel at the bank's shape (2 big fields
+    of 1536^2 with their inverses: M = 4 directions on the 768^2 half
+    lattice, 63 displacers, the chairs cells' epoch) and Sintel's (2 of
+    3072^2: 1536^2, 270 displacers): the kernel against its plain version
+    bit for bit, its time by CUDA events (alone, on packed constants, and
+    the whole call with the constants' derivation), the plain version once
+    by host clock, the fp32-issue bound, registers and the SASS of its
+    displacer loop. Returns the kernel's row."""
+    from flowgen_torch.warpfields import fields
+
+    facts = elementary_field_sass(4)
+    shapes = {}
+    for label, big in (("bank", 1536), ("sintel", 3072)):
+        grid, inv = elementary_field_inputs(big, 2, dev)
+        S = big // 2
+        consts = fields._packed_constants(grid, inv)
+        n0 = fields.elementary_field.launches
+        got = fields.elementary_field(grid, S, inv, stride=2.0)
+        torch.cuda.synchronize()
+        if fields.elementary_field.launches != n0 + 1:
+            fail("elementary_field did not launch its kernel once")
+        p_ms, want = host_ms(
+            lambda: fields.elementary_field_plain(grid, S, inv, stride=2.0))
+        bits = bits_unequal(got, want)
+        err = float((got - want).abs().max())
+        del want
+        k_ms = event_ms(lambda: fields.elementary_field_cuda(consts, S, 2.0))
+        # Two calls a reading: the constants' ~150 small launches a call
+        # would fill the launch queue behind the spin at ten.
+        w_ms = event_ms(lambda: fields.elementary_field(grid, S, inv, 2.0),
+                        reps=2)
+        bd = elementary_field_bound(grid, S)
+        M, N = grid.kind.shape
+        shapes[label] = {"M": M, "N": N, "size": S, "ms": k_ms,
+                         "call_ms": w_ms, "plain_ms": p_ms,
+                         "bits_differ": bits, "max_abs_err": err, **bd}
+        print(f"elementary_field_kernel ({label}: M={M} directions, {N} "
+              f"displacers, {S}^2 lattice at stride 2): {k_ms:.4f} ms a "
+              f"launch (CUDA events, 10 launches), the whole call with its "
+              f"constants {w_ms:.4f} ms; plain version {p_ms:.1f} ms (host "
+              f"clock, once); bound {bd['bound_ms']:.4f} ms by fp32 issue "
+              f"({bd['operations']:.4e} operations), {bd['bound_ms'] / k_ms:.1%}"
+              f" of it; vs plain: max |d| {err}, {bits} values with other "
+              f"bits [{card}]")
+        if bits:
+            fail(f"elementary_field_kernel differs from its plain version "
+                 f"({label})")
+        if k_ms < bd["bound_ms"]:
+            fail(f"elementary_field_kernel ({k_ms:.4f} ms) beats its bound "
+                 f"({bd['bound_ms']:.4f} ms): OPS_FIELD_PAIR is wrong")
+        del grid, inv, consts, got
+    print(f"elementary_field_kernel: {facts['registers']} registers; its "
+          f"displacer loop {facts['loop_instructions']} SASS instructions "
+          f"for 4 pixels, {facts['per_pair']:.2f} a (pixel, displacer) pair "
+          f"with all three motion arms, by family "
+          + json.dumps({k: round(v, 2) for k, v in facts["families"].items()}))
+    b = shapes["bank"]
+    return {
+        "name": "elementary_field", "route": "cuda",
+        "source": "flowgen_torch/csrc/fields.cu",
+        "replaces": None, "max_abs_err": max(s["max_abs_err"]
+                                             for s in shapes.values()),
+        "ms": b["ms"], "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
+        "bound_by": "operations (fp32 issue)", "library_ms": None,
+        "library": "no single PyTorch call computes it",
+        "shape": "M=4 directions (2 big fields of 1536^2 and their "
+                 "inverses), 63 displacers, 768^2 at stride 2",
+        "replaces_note": "XLA in the JAX package (no pallas_call): the "
+                         "fori_loop of warpfields/fields.py:elementary_field",
+        "sintel": shapes["sintel"], "sass": facts,
+    }
 
 
 def phase_quadrant(card, dev):
@@ -2497,7 +2651,8 @@ def phase_mode9_xla(res9, card, dev):
     bank against the CPU's (18a); the scene kernel on the stream's warp
     planes against its plain version on samples 0-3 of step 0, bit for bit;
     the main path through Generator beside phase 7's (the "pallas" stream),
-    with no bank kernel launched; the bank producer's ms per epoch at
+    with no composition kernel launched (the elementary field takes its
+    kernel in both streams); the bank producer's ms per epoch at
     1536^2 in both streams. Returns the scene kernel's worst difference and
     launches."""
     import dataclasses
@@ -2547,7 +2702,7 @@ def phase_mode9_xla(res9, card, dev):
     del first
     counts = res["launches"]
     if counts["coarse_gdisp"] or counts["hwarp_rows"]:
-        fail(f"the xla stream launched bank kernels: {counts}")
+        fail(f"the xla stream launched composition kernels: {counts}")
     print(f"mode 9 pipelined, xla stream {res['ms_per_step']:.2f} ms/step "
           f"({res['samples_per_s']:.1f} samples/s, {res['cuda_kernels']:.0f} "
           f"CUDA kernels a step), pallas stream (phase 7) "
@@ -3158,8 +3313,10 @@ def phase_bench(m13, card):
         if counts["scene_render"] != dispatched or (
                 mode == 9 and (not built
                                or counts["coarse_gdisp"] != 36 * built
-                               or counts["hwarp_rows"] != 34 * built)) or (
-                mode == 7 and counts["coarse_gdisp"] + counts["hwarp_rows"]):
+                               or counts["hwarp_rows"] != 34 * built
+                               or counts["elementary_field"] != built)) or (
+                mode == 7 and counts["coarse_gdisp"] + counts["hwarp_rows"]
+                + counts["elementary_field"]):
             fail(f"bench_torch mode {mode}: kernel launches {counts} for "
                  f"{dispatched} steps")
         print(f"phase 24, bench_torch.py {mode} 64 ({n_steps} steps): "
@@ -3258,10 +3415,12 @@ def main():
     built = counts["coarse_gdisp"] // 36
     if not all(counts[k] for k in FUSED_KERNELS) or (
             counts["coarse_gdisp"] != 36 * built) or (
-            counts["hwarp_rows"] != 34 * built):
+            counts["hwarp_rows"] != 34 * built) or (
+            counts["elementary_field"] != built):
         fail(f"the mode-9 path's kernel launches are off: {counts}")
     print(f"mode 9 bank epochs built: {built} (36 coarse_gdisp launches, "
-          f"its two kernels in each of 18 calls, and 34 hwarp_rows) for "
+          f"its two kernels in each of 18 calls, 34 hwarp_rows and 1 "
+          f"elementary_field) for "
           f"{res['dispatched']} steps dispatched, "
           f"{cfg.warp_bank_reuse_steps} steps an epoch")
     layers = layer_breakdown(cfg, slabs, dev)
@@ -3395,6 +3554,12 @@ def main():
     # ---- 24: bench_torch.py's cells ----
     phase_bench(m13, card)
     stamp("phase 24 (bench_torch.py cells) done")
+    # ---- 25: the elementary field's kernel ----
+    ef = phase_elementary_field(card, dev)
+    ef["launches"] = counts["elementary_field"]
+    ef["sharded_launches"] = sh_counts["elementary_field"]
+    rows.append(ef)
+    stamp("phase 25 (elementary field) done")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,6 +1,6 @@
-// Warp-field composition kernels of the mode-9 bank producer, on NVIDIA
-// Hopper: the coarse column-inverse solve with its x4 upsample, and the
-// row-tiled horizontal warp.
+// Warp-field kernels of the mode-9 bank producer, on NVIDIA Hopper: the
+// elementary field, the coarse column-inverse solve with its x4 upsample,
+// and the row-tiled horizontal warp.
 //
 // Replaces flowgen/warpfields/pallas_fields.py:
 //   * coarse_solve_kernel + upsample4_kernel (or upsample2_kernel) <-
@@ -70,6 +70,21 @@
 // launches of upsample2_kernel, one _upsample2 stage each (none at stride
 // 1, where the solve writes the output). The stride and the step count are
 // run-time arguments; stride 4 is also a compile-time case of the solve.
+//
+// elementary_field_kernel replaces no TPU kernel: the JAX package's
+// warpfields/fields.py:elementary_field is a fori_loop over the displacers
+// that XLA fuses. Run as eager PyTorch, it is some 65 full-plane kernels a
+// displacer (about 4,400 launches and ~30 ms of device time a bank epoch),
+// so the port has this kernel instead. What bounds it: it writes only its
+// output (8 bytes a pixel and direction) but does 43 to 53 float32
+// operations a (pixel, displacer) pair by motion kind, none of them fusable
+// (-fmad=false keeps the eager roundings), so the fp32 issue rate bounds
+// it: 4 x 768^2 pixels x 63 displacers at 128 lanes x 132 SMs x 1.98 GHz
+// is about 0.21 ms. What the design does about that: one pass, the
+// sums in registers, a block's displacer constants staged once in shared
+// memory and read as four broadcast float4 loads a displacer for four
+// pixels, the motion branch uniform across the block, nothing culled (the
+// exp never returns an exact 0, so skipping a term could move a bit).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -748,6 +763,139 @@ __global__ void __launch_bounds__(kHwarpLaneStep* kHwarpRows)
   cluster.sync();
 }
 
+// ---------------------------------------------------------------------------
+// Elementary field
+// ---------------------------------------------------------------------------
+
+// A displacer's constants as the wrapper packs them (warpfields/fields.py:
+// _KERNEL_CONSTANTS): kind (as a float), cx, cy, c, s, f, tx, ty, sup_cx,
+// sup_cy, a, b, ratio, rinv. Staged as 16 floats, four float4 loads a
+// displacer: f is kept as f - 1 and -b is added beside b, the values the
+// eager expressions form from them.
+constexpr int kFieldConsts = 14;
+constexpr int kFieldRecord = 16;
+constexpr int kFieldThreads = 256;
+constexpr int kFieldPixels = 4;      // pixels a thread, kFieldThreads apart
+constexpr int kFieldChunk = 128;     // displacers staged at once (8 KB)
+
+// The float32 roundings of ops/detmath.py's constants, as the eager ops
+// round a Python float against a float32 tensor.
+constexpr float kLog2e = 0x1.715476p+0f;
+constexpr float kLn2Hi = 0x1.63p-1f;
+constexpr float kLn2Lo = -0x1.bd0106p-13f;
+constexpr float kExpC0 = 0x1.a0d2cep-13f;
+constexpr float kExpC1 = 0x1.6e879cp-10f;
+constexpr float kExpC2 = 0x1.11121p-7f;
+constexpr float kExpC3 = 0x1.555382p-5f;
+constexpr float kExpC4 = 0x1.555554p-3f;
+constexpr float kExpC5 = 0x1p-1f;
+
+// ops/detmath.py:det_exp: the clamp at -87 (a NaN passes, as in
+// torch.clamp), k = floor(x * log2(e) + 0.5), the two-part ln 2 reduction,
+// the Horner polynomial, and the scale 2^k built from its exponent bits.
+__device__ __forceinline__ float det_exp(float x) {
+  x = x < -87.0f ? -87.0f : x;
+  const float k = floorf(__fadd_rn(__fmul_rn(x, kLog2e), 0.5f));
+  const float r = __fsub_rn(__fsub_rn(x, __fmul_rn(k, kLn2Hi)),
+                            __fmul_rn(k, kLn2Lo));
+  float p = kExpC0;
+  p = __fadd_rn(__fmul_rn(p, r), kExpC1);
+  p = __fadd_rn(__fmul_rn(p, r), kExpC2);
+  p = __fadd_rn(__fmul_rn(p, r), kExpC3);
+  p = __fadd_rn(__fmul_rn(p, r), kExpC4);
+  p = __fadd_rn(__fmul_rn(p, r), kExpC5);
+  const float e = __fadd_rn(__fadd_rn(__fmul_rn(p, __fmul_rn(r, r)), r), 1.0f);
+  const float scale = __uint_as_float((uint32_t)((int)k + 127) << 23);
+  return __fmul_rn(e, scale);
+}
+
+// out (M, 2, S, S): for each direction m and lattice pixel (x * stride,
+// y * stride), the sum over the N displacers, in index order from +0, of
+// the motion (translation, rotation or zoom by `kind`) weighted by the
+// rotated Gaussian support: warpfields/fields.py:_displacer_term, each
+// operation rounded on its own in the eager expression's order. Grid:
+// (pixel tiles of kFieldThreads * kFieldPixels, M); a block's direction is
+// uniform, so it stages its displacers' constants in shared memory, chunk
+// by chunk, and every thread takes the same motion branch.
+__global__ void __launch_bounds__(kFieldThreads)
+    elementary_field_kernel(const float* __restrict__ consts,
+                            float* __restrict__ out, int N, int S,
+                            float stride) {
+  __shared__ __align__(16) float s_k[kFieldChunk * kFieldRecord];
+  const int m = blockIdx.y;
+  const int plane = S * S;
+  const int p0 = blockIdx.x * (kFieldThreads * kFieldPixels) + threadIdx.x;
+  float px[kFieldPixels], py[kFieldPixels], fx[kFieldPixels], fy[kFieldPixels];
+#pragma unroll
+  for (int i = 0; i < kFieldPixels; ++i) {
+    const int p = p0 + i * kFieldThreads;
+    px[i] = __fmul_rn((float)(p % S), stride);
+    py[i] = __fmul_rn((float)(p / S), stride);
+    fx[i] = 0.0f;
+    fy[i] = 0.0f;
+  }
+  const float* src = consts + (size_t)m * N * kFieldConsts;
+  for (int d0 = 0; d0 < N; d0 += kFieldChunk) {
+    const int n = min(kFieldChunk, N - d0);
+    __syncthreads();
+    for (int i = threadIdx.x; i < n * kFieldConsts; i += kFieldThreads) {
+      const float v = src[(size_t)d0 * kFieldConsts + i];
+      const int q = i % kFieldConsts;
+      float* rec = s_k + (i / kFieldConsts) * kFieldRecord;
+      if (q < 12) rec[q] = q == 5 ? __fsub_rn(v, 1.0f) : v;
+      if (q == 11) rec[12] = -v;
+      if (q >= 12) rec[q + 1] = v;
+    }
+    __syncthreads();
+#pragma unroll 1
+    for (int j = 0; j < n; ++j) {
+      const float4* rec = reinterpret_cast<const float4*>(s_k) + 4 * j;
+      const float4 k0 = rec[0];   // kind, cx, cy, c
+      const float4 k1 = rec[1];   // s, f - 1, tx, ty
+      const float4 k2 = rec[2];   // sup_cx, sup_cy, a, b
+      const float4 k3 = rec[3];   // -b, ratio, rinv
+#pragma unroll
+      for (int i = 0; i < kFieldPixels; ++i) {
+        float mx, my;
+        if (k0.x == 0.0f) {
+          mx = k1.z;
+          my = k1.w;
+        } else {
+          const float dx = __fsub_rn(px[i], k0.y);
+          const float dy = __fsub_rn(py[i], k0.z);
+          if (k0.x == 1.0f) {
+            mx = __fsub_rn(__fsub_rn(__fmul_rn(k0.w, dx), __fmul_rn(k1.x, dy)),
+                           dx);
+            my = __fsub_rn(__fadd_rn(__fmul_rn(k1.x, dx), __fmul_rn(k0.w, dy)),
+                           dy);
+          } else {
+            mx = __fmul_rn(k1.y, dx);
+            my = __fmul_rn(k1.y, dy);
+          }
+        }
+        const float ex = __fsub_rn(px[i], k2.x);
+        const float ey = __fsub_rn(py[i], k2.y);
+        const float rx = __fadd_rn(__fmul_rn(k2.z, ex), __fmul_rn(k2.w, ey));
+        const float ry = __fmul_rn(
+            __fadd_rn(__fmul_rn(k3.x, ex), __fmul_rn(k2.z, ey)), k3.y);
+        const float r2 = __fadd_rn(__fmul_rn(rx, rx), __fmul_rn(ry, ry));
+        const float w = det_exp(__fmul_rn(-r2, k3.z));
+        fx[i] = __fadd_rn(fx[i], __fmul_rn(mx, w));
+        fy[i] = __fadd_rn(fy[i], __fmul_rn(my, w));
+      }
+    }
+  }
+  float* o = out + (size_t)m * 2 * plane;
+#pragma unroll
+  for (int i = 0; i < kFieldPixels; ++i) {
+    const int p = p0 + i * kFieldThreads;
+    if (p < plane) {
+      o[p] = fx[i];
+      o[plane + p] = fy[i];
+    }
+  }
+}
+
 }  // namespace flowgen
 
 namespace {
@@ -930,4 +1078,21 @@ extern "C" int flowgen_hwarp_rows(const float* src, const float* disp,
     case 256: return launch_hwarp<4>(src, disp, out, G, Sp, C, R, scan, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// out (M, 2, S, S) = the elementary fields of M directions of N displacers
+// each, consts (M, N, kFieldConsts) as warpfields/fields.py packs them, on
+// the lattice of spacing `stride`; both contiguous float32. S * S must fit
+// an int.
+extern "C" int flowgen_elementary_field(const float* consts, float* out, int M,
+                                        int N, int S, float stride,
+                                        void* stream) {
+  using namespace flowgen;
+  if (M <= 0 || M > 65535 || N < 0 || S <= 0 || S > 46340)
+    return (int)cudaErrorInvalidValue;
+  const int per_block = kFieldThreads * kFieldPixels;
+  const dim3 grid((S * S + per_block - 1) / per_block, M);
+  elementary_field_kernel<<<grid, kFieldThreads, 0, (cudaStream_t)stream>>>(
+      consts, out, N, S, stride);
+  return (int)cudaGetLastError();
 }

@@ -148,6 +148,9 @@ def load_fields_library():
         lib.flowgen_hwarp_rows.argtypes = [ctypes.c_void_p] * 3 + [
             ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.flowgen_hwarp_rows.restype = ctypes.c_int
+        lib.flowgen_elementary_field.argtypes = [ctypes.c_void_p] * 2 + [
+            ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+        lib.flowgen_elementary_field.restype = ctypes.c_int
     return lib
 
 

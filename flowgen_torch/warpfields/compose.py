@@ -33,7 +33,8 @@ Two wrappers of kernels, each with its plain PyTorch version beside it:
 
 A CUDA tensor launches the kernels; a CPU tensor runs the plain version.
 Inside ``with plain_versions():`` the plain versions run on any device:
-the kernel-vs-plain comparisons on the card use it. Both read their taps
+the kernel-vs-plain comparisons on the card use it. The bank's third
+kernel, ``fields.elementary_field``, follows the same rule (``_runs_plain``). Both read their taps
 through the JAX kernels' banded rule (``ops/resample.py:banded_taps``) and
 keep its order of operations, so the bank is the same bit for bit on the
 CPU, on the card and in the JAX package.
@@ -70,8 +71,9 @@ _plain = False
 
 @contextlib.contextmanager
 def plain_versions():
-    """Inside the block the bank kernels' wrappers run their plain versions
-    on any device (the kernel-vs-plain comparisons on the card)."""
+    """Inside the block the bank kernels' wrappers (here and
+    ``fields.elementary_field``) run their plain versions on any device
+    (the kernel-vs-plain comparisons on the card)."""
     global _plain
     prev, _plain = _plain, True
     try:

@@ -15,8 +15,12 @@ to be bit-identical to the JAX package's.
 (field, flow / inverse flow) pair of a bank epoch, accumulating the
 displacers in the JAX ``fori_loop``'s order. The displacers' constants
 (rotations, zoom factors, support scales) are derived for all of them at
-once before the loop, elementwise and so in the same bits, which takes
-most of a bank epoch's launches off the host.
+once, elementwise and so in the same bits. On a CUDA device one kernel
+(``csrc/fields.cu:elementary_field_kernel``, counted in
+``elementary_field.launches``) then sums every displacer over every pixel;
+its plain version, ``elementary_field_plain``, runs the terms as full-plane
+PyTorch operations, one displacer after another, on the CPU and inside
+``compose.plain_versions()``.
 """
 
 from __future__ import annotations
@@ -189,13 +193,10 @@ def stack_grids(grids, inverse_flags):
                     lambda: torch.tensor(flags, dtype=torch.bool))
 
 
-def elementary_field(grid: DisplacerGrid, size: int, inverse,
-                     stride: float = 1.0):
-    """Dense sum of every displacer's contribution over a size x size
-    lattice with coordinates ``i * stride``, for M directions at once
-    (``grid`` leaves (M, N), ``inverse`` (M,) bool). The displacers are
-    added in index order, as the JAX package's ``fori_loop`` adds them.
-    Returns (M, 2, size, size): planes x, y."""
+def elementary_field_plain(grid: DisplacerGrid, size: int, inverse,
+                           stride: float = 1.0):
+    """The plain version of :func:`elementary_field`: the displacers'
+    terms as full-plane PyTorch operations, one displacer after another."""
     dev = grid.kind.device
     ys = torch.arange(size, dtype=torch.float32, device=dev) * stride
     py, px = torch.meshgrid(ys, ys, indexing="ij")
@@ -208,6 +209,75 @@ def elementary_field(grid: DisplacerGrid, size: int, inverse,
         fx = fx + tx
         fy = fy + ty
     return torch.stack([fx, fy], dim=1)
+
+
+# The order in which the kernel reads a displacer's constants
+# (csrc/fields.cu:elementary_field_kernel).
+_KERNEL_CONSTANTS = ("kind", "cx", "cy", "c", "s", "f", "tx", "ty", "sup_cx",
+                     "sup_cy", "a", "b", "ratio", "rinv")
+
+
+def _packed_constants(grid: DisplacerGrid, inverse):
+    """:func:`_displacer_constants` as the kernel reads them: (M, N, 14)
+    float32 in the order of ``_KERNEL_CONSTANTS``, ``kind`` as a float."""
+    M, n = grid.kind.shape
+    consts = _displacer_constants(grid, inverse)
+    return torch.stack([consts[k].reshape(n, M).t().to(torch.float32)
+                        for k in _KERNEL_CONSTANTS], dim=-1)
+
+
+def elementary_field_cuda(consts, size: int, stride: float = 1.0):
+    """Launch ``csrc/fields.cu:elementary_field_kernel`` on packed constants
+    ``consts`` (M, N, 14) (:func:`_packed_constants`) on a CUDA device, on
+    the current stream: returns (M, 2, size, size). Counted in
+    ``elementary_field.launches``. Any other packing raises before the
+    library loads."""
+    from ..ops._build import load_fields_library
+    from .compose import _ptr, _stream
+
+    if consts.dtype != torch.float32:
+        raise ValueError(f"elementary_field: constants must be float32, "
+                         f"not {consts.dtype}")
+    if consts.dim() != 3 or consts.shape[2] != len(_KERNEL_CONSTANTS):
+        raise ValueError(f"elementary_field: constants must be (M, N, "
+                         f"{len(_KERNEL_CONSTANTS)}); got {tuple(consts.shape)}")
+    if not consts.is_contiguous():
+        raise ValueError("elementary_field: constants must be contiguous")
+    if consts.device.type != "cuda":
+        raise ValueError("elementary_field: the kernel takes CUDA tensors")
+    M, n, _ = consts.shape
+    out = torch.empty((M, 2, size, size), dtype=torch.float32,
+                      device=consts.device)
+    err = load_fields_library().flowgen_elementary_field(
+        _ptr(consts), _ptr(out), M, n, size, f32(stride), _stream(consts))
+    if err != 0:
+        raise RuntimeError(f"elementary_field kernel launch failed: CUDA "
+                           f"error {err}")
+    elementary_field.launches += 1
+    return out
+
+
+def elementary_field(grid: DisplacerGrid, size: int, inverse,
+                     stride: float = 1.0):
+    """Dense sum of every displacer's contribution over a size x size
+    lattice with coordinates ``i * stride``, for M directions at once
+    (``grid`` leaves (M, N), ``inverse`` (M,) bool). The displacers are
+    added in index order, as the JAX package's ``fori_loop`` adds them.
+    Returns (M, 2, size, size): planes x, y.
+
+    CUDA tensors launch one kernel on the displacers' packed constants
+    (:func:`elementary_field_cuda`); CPU tensors, and any inside
+    ``compose.plain_versions()``, run :func:`elementary_field_plain`. Both
+    give the same bits."""
+    from .compose import _runs_plain
+
+    if _runs_plain("elementary_field", grid.kind):
+        return elementary_field_plain(grid, size, inverse, stride)
+    return elementary_field_cuda(_packed_constants(grid, inverse), size,
+                                 stride)
+
+
+elementary_field.launches = 0
 
 
 def clamp_near_zeros(field, threshold: float = 1e-3):

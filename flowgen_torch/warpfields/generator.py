@@ -19,7 +19,8 @@ On the card ``pipeline/generator.py:make_generate_fn`` replays an epoch's
 scene-kernel planes from CUDA graphs (:class:`BankAuxGraphs`), whose inputs
 are the root key and the epoch index.
 An epoch's build names its phases in a profile: ``flowgen.bank_fields``
-(displacer grids and elementary fields), ``flowgen.bank_compose`` (the
+(displacer grids and elementary fields, on the card one
+``fields.elementary_field`` kernel), ``flowgen.bank_compose`` (the
 doublings) and, in :func:`make_bank_and_aux`, ``flowgen.bank_aux``.
 """
 
@@ -299,7 +300,7 @@ class BankAuxGraphs:
     planes of a bank epoch in the ``"pallas"`` stream, replayed from CUDA
     graphs on ``dev``: one for each parity of the epoch index, captured on
     its first call, with the root key (2,) and the epoch index (int64 on
-    the device) as inputs. An epoch's build is some 12,000 small launches
+    the device) as inputs. An epoch's build is thousands of small launches
     from the host; a replay is one.
 
     The planes a call returns are its graph's outputs, not copies: the next
@@ -311,7 +312,8 @@ class BankAuxGraphs:
     kernels are the eager ones on the same inputs, so the planes are the
     eager planes bit for bit. ``captures`` and ``replays`` count the
     calls; the kernels' launch counters (``compose.hwarp_rows.launches``,
-    ``compose.coarse_gdisp_batch.launches``) count the warm-up's and the
+    ``compose.coarse_gdisp_batch.launches``,
+    ``fields.elementary_field.launches``) count the warm-up's and the
     captures' launches, not the replays'."""
 
     def __init__(self, cfg: DataGenConfig, dev):

@@ -315,6 +315,115 @@ def test_generate_fn_bank_graphs_match_eager_batches():
             assert torch.equal(got[k], want[k]), (step, k)
 
 
+def _field_grids(big, n_fields, dev, both=True, seed=11):
+    """Displacer grids of ``n_fields`` big fields of ``big``^2, each with its
+    inverse where ``both``, stacked as a bank epoch stacks them."""
+    from flowgen_torch.random.streams import Stream, stream_key
+    from flowgen_torch.warpfields import fields
+
+    grids, flags = [], []
+    for i in range(n_fields):
+        g = fields.sample_displacer_grid(
+            stream_key(root_key(seed, dev), Stream.WARP_FIELD, i), big)
+        grids += [g, g] if both else [g]
+        flags += [False, True] if both else [False]
+    return fields.stack_grids(grids, flags)
+
+
+def _same_bits(a, b):
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
+
+
+@pytest.mark.parametrize("big,n_fields,both,size,stride,m,n", [
+    (1536, 2, True, 768, 2.0, 4, 63),     # a chairs bank epoch
+    (3072, 1, True, 1536, 2.0, 2, 270),   # a Sintel big field
+    (600, 1, False, 97, 1.0, 1, 12),      # ragged tiles
+])
+def test_elementary_field_kernel_matches_plain(big, n_fields, both, size,
+                                               stride, m, n):
+    """The kernel against the plain version on the card, bit for bit (the
+    sign of a zero included), one launch a call; Sintel's 270 displacers
+    take three chunks of staged constants."""
+    from flowgen_torch.warpfields import fields
+
+    _need_card()
+    grid, inv = _field_grids(big, n_fields, "cuda", both)
+    assert tuple(grid.kind.shape) == (m, n)
+    n0 = fields.elementary_field.launches
+    got = fields.elementary_field(grid, size, inv, stride=stride)
+    assert fields.elementary_field.launches == n0 + 1
+    want = fields.elementary_field_plain(grid, size, inv, stride=stride)
+    torch.cuda.synchronize()
+    assert got.shape == (m, 2, size, size)
+    assert _same_bits(got, want)
+
+
+def test_elementary_field_kernel_replays_in_a_graph():
+    """Captured in a CUDA graph and replayed on new displacers copied into
+    its input, the kernel gives the eager launch's bits."""
+    from flowgen_torch.warpfields import fields
+
+    _need_card()
+    grid, inv = _field_grids(1536, 2, "cuda")
+    consts = fields._packed_constants(grid, inv)
+    other = fields._packed_constants(*_field_grids(1536, 2, "cuda", seed=12))
+    buf = consts.clone()
+    fields.elementary_field_cuda(buf, 768, 2.0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = fields.elementary_field_cuda(buf, 768, 2.0)
+    torch.cuda.current_stream().wait_stream(side)
+    for k in (consts, other):
+        buf.copy_(k)
+        graph.replay()
+        assert _same_bits(out, fields.elementary_field_cuda(k, 768, 2.0))
+    assert not _same_bits(fields.elementary_field_cuda(consts, 768, 2.0),
+                          fields.elementary_field_cuda(other, 768, 2.0))
+
+
+@pytest.mark.parametrize("bad", ["float64", "strided", "cpu"])
+def test_elementary_field_kernel_refuses_bad_constants(bad):
+    from flowgen_torch.warpfields import fields
+
+    _need_card()
+    grid, inv = _field_grids(600, 1, "cuda")
+    consts = fields._packed_constants(grid, inv)
+    if bad == "float64":
+        consts = consts.double()
+    elif bad == "strided":
+        consts = consts.transpose(0, 1)
+    else:
+        consts = consts.cpu()
+    n0 = fields.elementary_field.launches
+    with pytest.raises(ValueError):
+        fields.elementary_field_cuda(consts, 64, 2.0)
+    assert fields.elementary_field.launches == n0
+
+
+def test_bank_graphs_match_plain_bank_512x384():
+    """BankAuxGraphs at the chairs cells' 512x384 (2 big fields of 1536^2,
+    the elementary field through its kernel) against the eager bank built
+    by the plain versions, bit for bit."""
+    from flowgen_torch.warpfields import compose
+    from flowgen_torch.warpfields.generator import (BankAuxGraphs,
+                                                     make_bank_and_aux)
+
+    _need_card()
+    cfg = flowgen_torch.DataGenConfig(mode=9, batch_size=8,
+                                      warp_bank_reuse_steps=2)
+    root = root_key(2**31 + 9, "cuda")
+    graphs = BankAuxGraphs(cfg, "cuda")
+    for step in (0, 2):
+        got = [t.clone() for t in graphs(root, step)]
+        with compose.plain_versions():
+            want = make_bank_and_aux(root, step, cfg)[1]
+        for a, b in zip(got, want):
+            assert _same_bits(a, b) if a.is_floating_point() else torch.equal(a, b)
+
+
 def _mode9_tables(cfg, dev):
     """Scene-kernel inputs of a mode-9 batch holding deforming objects and a
     deforming background (the first such seed)."""

@@ -128,8 +128,9 @@ def test_displacer_grid_matches_jax(size):
 
 
 def test_elementary_field_matches_jax():
-    """Both directions of two big fields in one batched call, against the
-    JAX package's per-field fori_loop, on the half lattice of a 512 field."""
+    """Both directions of two big fields in one batched call of the plain
+    version (what the card's kernel is held to), against the JAX package's
+    per-field fori_loop, on the half lattice of a 512 field."""
     grids, jgrids, flags = [], [], []
     for seed in (3, 4):
         jk, tk = _keys(seed)
@@ -137,7 +138,7 @@ def test_elementary_field_matches_jax():
         jgrids += [jf.sample_displacer_grid(jk, 512)] * 2
         flags += [False, True]
     g, inv = tfields.stack_grids(grids, flags)
-    got = tfields.elementary_field(g, 256, inv, stride=2.0)
+    got = tfields.elementary_field_plain(g, 256, inv, stride=2.0)
     assert g.kind.shape == (4, 6)
     for m, (jgrid, inverse) in enumerate(zip(jgrids, flags)):
         want = jf.elementary_field(jgrid, 256, inverse=inverse, stride=2.0)
